@@ -1,0 +1,197 @@
+"""The port's halo conv (plain torch version of kernel B,
+uresnet_pytorch_tpu_torch/ops/cuda/halo_conv.py) against the JAX reference.
+
+f32: held to the reference's exact oracle (halo26_extend_xla + VALID
+lax.conv, plus the epilogue composed in f32) at atol 1e-5.
+bf16: held to the reference's Pallas kernels in interpret mode
+(`halo_conv_fwd`, `fused_halo_conv_bn_act`) at 1e-2, the bound of
+tests/test_halo_conv_fused.py. Cases: a v2-aligned shape, a v1 shape
+(t=2, C=12), Cin=1 (the stem) and dead tile blocks. The CUDA kernel itself
+is checked against this plain version on the card by chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_halo26 import _random_level
+from uresnet_pytorch_tpu.ops.halo import build_halo26 as j_build_halo26
+from uresnet_pytorch_tpu.ops.halo import halo26_extend_xla
+from uresnet_pytorch_tpu.ops.pallas.halo_conv import (
+    fused_halo_conv_bn_act, halo_conv_fwd, toeplitz_weights)
+from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
+from uresnet_pytorch_tpu_torch.ops.halo import build_halo26, halo26_extend
+
+_DN = ("NDHWC", "DHWIO", "NDHWC")
+ALPHA = 0.1
+
+
+def _case(t, Cin, Cout, live, seed, B=2, G=8, T=64):
+    """Sorted keys with `live` tiles per event (rows past it are dead),
+    x zero on dead rows and a mask inside the live occupancy: the
+    production invariants the liveness gate relies on."""
+    rng = np.random.default_rng(seed)
+    keys = np.stack([np.asarray(_random_level(rng, G, 3, T, live)[0])
+                     for _ in range(B)])
+    cells = t ** 3
+    alive = (keys != np.iinfo(np.int32).max)[..., None, None]
+    x = (rng.normal(size=(B, T, cells, Cin)) * alive).astype(np.float32)
+    w = (rng.normal(size=(27, Cin, Cout)) * 0.3).astype(np.float32)
+    a = (rng.normal(size=Cout) * 0.5 + 1.0).astype(np.float32)
+    b = (rng.normal(size=Cout) * 0.2).astype(np.float32)
+    mask = (rng.random((B, T, cells)) > 0.3) & alive[..., 0]
+    return keys, x, w, a, b, mask
+
+
+# jitted once per shape: eager dispatch of the reference's graph code
+# costs seconds per call on the CPU
+_j_spec = jax.jit(jax.vmap(lambda k: j_build_halo26(k, 8, 3, block=16)))
+
+
+def _specs(keys):
+    return _j_spec(jnp.asarray(keys)), build_halo26(torch.from_numpy(keys),
+                                                    8, 3)
+
+
+@jax.jit
+def _j_oracle(x, jspec, w):
+    B, T, cells, Cin = x.shape
+    t = round(cells ** (1 / 3))
+    ext = halo26_extend_xla(x, jspec, t, 3)
+    out = jax.lax.conv_general_dilated(
+        ext.reshape((B * T,) + (t + 2,) * 3 + (Cin,)),
+        w.reshape(3, 3, 3, Cin, -1), (1, 1, 1), "VALID",
+        dimension_numbers=_DN)
+    return out.reshape(B, T, cells, -1)
+
+
+def _oracle_f32(x, jspec, t, w):
+    return np.asarray(_j_oracle(jnp.asarray(x), jspec, jnp.asarray(w)))
+
+
+def _epilogue(y, a, b, mask):
+    z = y * a + b
+    return np.where(z >= 0, z, ALPHA * z) * mask[..., None]
+
+
+def _port(x, w, spec, t, a=None, b=None, mask=None, dtype=torch.float32):
+    ep = {} if a is None else dict(
+        a=torch.from_numpy(a), b=torch.from_numpy(b), alpha=ALPHA,
+        mask=torch.from_numpy(mask))
+    out = hc.halo_conv(torch.from_numpy(x).to(dtype),
+                       torch.from_numpy(w).to(dtype), spec, t, 3, **ep)
+    assert out.dtype == dtype
+    return out.float().numpy()
+
+
+CASES = [  # t, Cin, Cout, live tiles of 64
+    pytest.param(4, 16, 16, 40, id="v2-t4-c16"),
+    pytest.param(2, 12, 12, 40, id="v1-t2-c12"),
+    pytest.param(4, 1, 8, 40, id="stem-cin1"),
+]
+
+
+@pytest.mark.parametrize("t,Cin,Cout,live", CASES)
+def test_plain_f32_matches_xla_oracle(t, Cin, Cout, live):
+    keys, x, w, a, b, mask = _case(t, Cin, Cout, live, seed=Cin + t)
+    jspec, spec = _specs(keys)
+    ref = _oracle_f32(x, jspec, t, w)
+    np.testing.assert_allclose(_port(x, w, spec, t), ref, atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(_port(x, w, spec, t, a, b, mask),
+                               _epilogue(ref, a, b, mask), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("t,Cin,Cout,live", CASES)
+def test_plain_bf16_matches_pallas_interpret(t, Cin, Cout, live):
+    keys, x, w, a, b, mask = _case(t, Cin, Cout, live, seed=Cin + t)
+    jspec, spec = _specs(keys)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    wb = jnp.asarray(w).astype(jnp.bfloat16)
+    fused = fused_halo_conv_bn_act(xb, wb, jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(mask), ALPHA, jspec, t, 3,
+                                   interpret=True)
+    if fused is None:
+        # off the v2 layout the reference declines its fused kernel and
+        # runs halo_conv_fwd + the epilogue in XLA: hold the raw conv to
+        # that kernel too (each interpret-mode call costs seconds, so the
+        # v2 case checks the fused kernel only)
+        assert t == 2 or Cin < 8
+        raw = halo_conv_fwd(xb, toeplitz_weights(wb, t, 3, jnp.bfloat16),
+                            jspec, t, 3, interpret=True)
+        raw = np.asarray(raw.astype(jnp.float32))
+        np.testing.assert_allclose(
+            _port(x, w, spec, t, dtype=torch.bfloat16), raw, rtol=1e-2,
+            atol=1e-2)
+        fused = _epilogue(raw, a, b, mask)
+    else:
+        fused = np.asarray(fused.astype(jnp.float32))
+    np.testing.assert_allclose(
+        _port(x, w, spec, t, a, b, mask, dtype=torch.bfloat16), fused,
+        rtol=1e-2, atol=1e-2)
+
+
+def test_dead_rows_are_exact_zeros():
+    """Rows past the live prefix come out as exact zeros, whatever the
+    epilogue's bias would give (the kernel skips them)."""
+    keys, x, w, a, b, mask = _case(4, 8, 8, 20, seed=3)
+    _, spec = _specs(keys)
+    out = _port(x, w, spec, 4, a, b + 5.0, np.ones_like(mask))
+    assert (out[:, 20:] == 0).all() and (out[:, :20] != 0).any()
+
+
+def test_halo_extend_matches_reference_bitwise():
+    keys, x, *_ = _case(4, 3, 3, 40, seed=9)
+    jspec, spec = _specs(keys)
+    ref = np.asarray(halo26_extend_xla(jnp.asarray(x), jspec, 4, 3))
+    np.testing.assert_array_equal(
+        halo26_extend(torch.from_numpy(x), spec, 4, 3).numpy(), ref)
+
+
+def test_kernel_reads_model_rows_without_pack():
+    """Kernel B takes the model's own (B, T, cells, C) activation storage:
+    its C arguments point at x itself, where the TPU kernels first repack
+    lanes (`_preslice0`) into a kernel-specific layout. The wrapper also
+    refuses the epilogue unless a, b and mask come together."""
+    keys, x, w, a, b, mask = _case(4, 16, 16, 40, seed=1)
+    _, spec = _specs(keys)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    at, bt, mt = (torch.from_numpy(v) for v in (a, b, mask))
+    out = torch.empty(2, 64, 64, 16)
+    kw = hc.kernel_weights(wt)
+    assert kw.shape == (27, 16, 16)
+    np.testing.assert_array_equal(kw.numpy(), w.transpose(0, 2, 1))
+    args = hc.launch_args(xt, kw, spec, 4, 3, at, bt, 0.1, mt, out)
+    assert args[0] == xt.data_ptr() and args[1] == kw.data_ptr()
+    assert args[-6:] == (2, 64, 4, 3, 16, 16)
+    stem = hc.kernel_weights(torch.ones(27, 1, 8))   # Cin = 1 pads to 16
+    assert stem.shape == (27, 8, 16) and stem[..., 1:].abs().sum() == 0
+    with pytest.raises(ValueError):
+        hc.halo_conv(xt, wt, spec, 4, 3, a=at)
+
+
+@pytest.mark.parametrize("epilogue", [False, True])
+def test_tiled_conv_dispatch_matches_reference(epilogue):
+    """ops/tile_conv's submanifold_conv_tiled (raw entry, masked by
+    occupancy) and submanifold_conv_bn_act_tiled (epilogue entry) against
+    the reference's functions of the same names, f32."""
+    from uresnet_pytorch_tpu.ops import tile_conv as jtc
+    from uresnet_pytorch_tpu_torch.ops import tile_conv as ttc
+    keys, x, w, a, b, mask = _case(4, 8, 8, 40, seed=5)
+    jspec, spec = _specs(keys)
+    occ = mask | (np.random.default_rng(6).random(mask.shape) > 0.5)
+    occ &= mask.any(-1, keepdims=True)
+    j = [jnp.asarray(v) for v in (x, occ, w, a, b, mask)]
+    p = [torch.from_numpy(v) for v in (x, occ, w, a, b, mask)]
+    if epilogue:
+        ref = jtc.submanifold_conv_bn_act_tiled(
+            j[0], j[1], jspec, 4, 3, j[2], j[3], j[4], ALPHA, j[5])
+        out = ttc.submanifold_conv_bn_act_tiled(
+            p[0], p[1], spec, 4, 3, p[2], p[3], p[4], ALPHA, p[5])
+    else:
+        ref = jtc.submanifold_conv_tiled(j[0], j[1], jspec, 4, 3, j[2])
+        out = ttc.submanifold_conv_tiled(p[0], p[1], spec, 4, 3, p[2])
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
+                               rtol=1e-5)

@@ -1,0 +1,130 @@
+"""Submanifold 3^dim conv on halo'd tiles, with an optional epilogue.
+
+    raw:      y = conv(x)
+    epilogue: y = mask * leaky_alpha(conv(x) * a + b)
+
+x (B, T, t^dim, Cin) channels last, w (3^dim, Cin, Cout) with offset
+k = (d0*3 + d1)*3 + d2 over {-1,0,1}^dim, neighbor rows from a
+`Halo26Spec`. Sums run in f32 and round once to x's dtype; the affine
+a, b (Cout,) is f32, the mask (B, T, t^dim) bool. Dead tile rows
+(`halo.blive` false) are zero in both versions. The kernel takes bfloat16
+(its tensor-core MMAs are bf16 x bf16 -> f32) and Cout a multiple of 8 up
+to 128; the plain version takes any float dtype and width.
+
+Kernel B (`csrc/halo_conv.cu`) replaces four TPU kernels in
+`uresnet_pytorch_tpu/ops/pallas/halo_conv.py`: `fused_halo_conv_bn_act`
+(v2 with epilogue), `halo_conv_fwd` (v2 and v1) and the `_preslice0`
+lane repack that feeds them. It reads plain (B, T, cells, C) rows
+through `idx`/`ok`, so no packed layout exists and one kernel serves
+every (t, Cin), Cin = 1 included. `halo_conv_plain` is the same function
+in plain torch: the exact halo extend then a VALID conv in f32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from uresnet_pytorch_tpu_torch.ops import cuda
+from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec, halo26_extend
+
+launches = 0   # kernel launches, for showing a run went through the kernel
+
+
+def halo_conv_plain(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec,
+                    t: int, dim: int, a=None, b=None, alpha: float = 1.0,
+                    mask=None) -> torch.Tensor:
+    B, T, cells, Cin = x.shape
+    Cout = w.shape[-1]
+    ext = halo26_extend(x.float(), halo, t, dim)
+    xin = ext.reshape((B * T,) + (t + 2,) * dim + (Cin,)).movedim(-1, 1)
+    kern = w.float().reshape((3,) * dim + (Cin, Cout))
+    kern = kern.permute((dim + 1, dim) + tuple(range(dim)))
+    conv = F.conv3d if dim == 3 else F.conv2d
+    y = conv(xin, kern).movedim(1, -1).reshape(B, T, cells, Cout)
+    if a is not None:
+        z = y * a.float() + b.float()
+        y = torch.where(z >= 0, z, alpha * z) * mask[..., None]
+    y = y * halo.blive[:, :, None, None]
+    return y.to(x.dtype)
+
+
+def _check(x, w, halo, t, dim, a, b, mask):
+    B, T, cells, Cin = x.shape
+    K, Cout = 3 ** dim, w.shape[-1]
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"halo_conv: unsupported device {dev}")
+    if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        raise TypeError(f"halo_conv: the kernel takes bfloat16 x and w, got "
+                        f"{x.dtype} / {w.dtype}")
+    if dim not in (2, 3) or cells != t ** dim or w.shape != (K, Cin, Cout):
+        raise ValueError(f"halo_conv: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)} do not fit t={t}, dim={dim}")
+    if Cout % 8 or Cout > 128:
+        raise ValueError(f"halo_conv: the kernel takes Cout a multiple of 8 "
+                         f"up to 128, got {Cout}")
+    shapes = [("idx", halo.idx, (B, K - 1, T), torch.int32),
+              ("ok", halo.ok, (B, K - 1, T), torch.bool),
+              ("blive", halo.blive, (B, T), torch.bool)]
+    if a is not None:
+        shapes += [("a", a, (Cout,), torch.float32),
+                   ("b", b, (Cout,), torch.float32),
+                   ("mask", mask, (B, T, cells), torch.bool)]
+    for name, v, shape, dtype in shapes:
+        if tuple(v.shape) != shape or v.dtype != dtype:
+            raise ValueError(f"halo_conv: {name} is {tuple(v.shape)} "
+                             f"{v.dtype}, need {shape} {dtype}")
+    for name, v in [("x", x), ("w", w)] + [(n, v) for n, v, _, _ in shapes]:
+        if v.device != dev or not v.is_contiguous():
+            raise ValueError(f"halo_conv: {name} must be contiguous on {dev}")
+
+
+def kernel_weights(w: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) -> (K, Cout, round_up(Cin, 16)), zero-padded: the
+    kernel's B-operand layout (at most 27x128x128 values, one small copy
+    per call)."""
+    K, Cin, Cout = w.shape
+    wt = w.new_zeros(K, Cout, -(-Cin // 16) * 16)
+    wt[:, :, :Cin] = w.transpose(1, 2)
+    return wt
+
+
+def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out) -> tuple:
+    """The C entry point's arguments, stream excluded: the tensors' own
+    storage (the model's (B, T, cells, C) rows, no packed copy), the
+    kernel-layout weights and the shape."""
+    B, T, _, Cin = x.shape
+    ptrs = [x.data_ptr(), wt.data_ptr(), halo.idx.data_ptr(),
+            halo.ok.data_ptr(), halo.blive.data_ptr()]
+    if a is not None:
+        ptrs += [a.data_ptr(), b.data_ptr(), mask.data_ptr(), float(alpha)]
+    return (*ptrs, out.data_ptr(), B, T, t, dim, Cin, out.shape[-1])
+
+
+def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
+              dim: int, a=None, b=None, alpha: float = 1.0,
+              mask=None) -> torch.Tensor:
+    """The conv on x's device: the plain version for a CPU tensor, the
+    CUDA kernel for a CUDA tensor (raises if it cannot launch). Pass
+    a, b and mask together for the epilogue, or none of them."""
+    if (a is None) != (b is None) or (a is None) != (mask is None):
+        raise ValueError("halo_conv: pass a, b and mask together")
+    if x.device.type == "cpu":
+        return halo_conv_plain(x, w, halo, t, dim, a, b, alpha, mask)
+    global launches
+    _check(x, w, halo, t, dim, a, b, mask)
+    B, T, cells, _ = x.shape
+    out = torch.empty(B, T, cells, w.shape[-1], dtype=x.dtype,
+                      device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = cuda.library()
+    fn = lib.halo_conv_raw if a is None else lib.halo_conv_bn_act
+    with torch.cuda.device(x.device):
+        wt = kernel_weights(w)
+        err = fn(*launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out),
+                 torch.cuda.current_stream().cuda_stream)
+    cuda.check(err, "halo_conv")
+    launches += 1
+    return out

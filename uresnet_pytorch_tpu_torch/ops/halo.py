@@ -1,0 +1,121 @@
+"""Direct 26-neighbor tile halo maps.
+
+Port of `uresnet_pytorch_tpu/ops/halo.py`: the static slab geometry
+(`halo_offsets`, `slab_cells`, `body_cells`), the neighbor maps of
+`build_halo26` and the exact extend `halo26_extend_xla`.
+
+Only the neighbor maps come across. The reference's windows, rebases,
+lidx/hasp and correction lists plan one-hot gathers on the TPU; the
+Hopper kernel (`ops/cuda/halo_conv.py`) reads neighbor rows directly
+through `idx`/`ok`. With no correction budget nothing can be dropped, so
+`overflow` is 0 by construction.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from uresnet_pytorch_tpu_torch.ops.coords import (SENTINEL, decode, encode,
+                                                  lookup)
+
+
+@lru_cache(maxsize=None)
+def halo_offsets(dim: int) -> tuple:
+    """The 3^dim - 1 nonzero neighbor offsets, lexicographic. Negation
+    reverses this order: offset index of -delta is (K-1-k)."""
+    offs = [tuple(int(v) for v in o) for o in
+            np.stack(np.meshgrid(*([np.arange(-1, 2)] * dim),
+                                 indexing="ij"), -1).reshape(-1, dim)
+            if any(o)]
+    return tuple(offs)
+
+
+@lru_cache(maxsize=None)
+def slab_cells(delta: tuple, t: int):
+    """Static cell geometry for one neighbor offset.
+
+    Returns (ext_cells, src_cells) int64 arrays of length S: positions in
+    the (t+2)^dim halo-extended tile (row-major, last axis fastest) that
+    offset `delta` fills, and the matching positions in the neighbor's
+    t^dim tile."""
+    dim = len(delta)
+    axes_ext, axes_src = [], []
+    for d in delta:
+        if d == -1:
+            axes_ext.append(np.array([0]))
+            axes_src.append(np.array([t - 1]))
+        elif d == 1:
+            axes_ext.append(np.array([t + 1]))
+            axes_src.append(np.array([0]))
+        else:
+            axes_ext.append(np.arange(1, t + 1))
+            axes_src.append(np.arange(t))
+    eg = np.stack(np.meshgrid(*axes_ext, indexing="ij"), -1).reshape(-1, dim)
+    sg = np.stack(np.meshgrid(*axes_src, indexing="ij"), -1).reshape(-1, dim)
+    ext_cells = np.zeros(len(eg), np.int64)
+    src_cells = np.zeros(len(sg), np.int64)
+    for a in range(dim):
+        ext_cells = ext_cells * (t + 2) + eg[:, a]
+        src_cells = src_cells * t + sg[:, a]
+    return ext_cells, src_cells
+
+
+@lru_cache(maxsize=None)
+def body_cells(t: int, dim: int) -> np.ndarray:
+    """Ext positions of the tile's own t^dim cells (offset zero)."""
+    g = np.stack(np.meshgrid(*([np.arange(1, t + 1)] * dim),
+                             indexing="ij"), -1).reshape(-1, dim)
+    cells = np.zeros(len(g), np.int64)
+    for a in range(dim):
+        cells = cells * (t + 2) + g[:, a]
+    return cells
+
+
+class Halo26Spec(NamedTuple):
+    """Per-level neighbor maps, batched over events."""
+    idx: torch.Tensor       # (B, K, T) int32 neighbor row per offset or 0
+    ok: torch.Tensor        # (B, K, T) bool neighbor exists
+    blive: torch.Tensor     # (B, T) bool live tile row. Keys are sorted with
+    #                         SENTINEL padding, so live rows are a prefix;
+    #                         the conv kernel writes zeros for dead rows
+    overflow: torch.Tensor  # (B,) int32 dropped pairs: always 0 here
+
+
+def build_halo26(keys: torch.Tensor, grid: int, dim: int) -> Halo26Spec:
+    """keys (B, T) sorted tile keys on a grid^dim tile grid -> neighbor maps
+    for all 3^dim - 1 offsets, in `halo_offsets` order."""
+    offs = torch.tensor(halo_offsets(dim), dtype=torch.int32,
+                        device=keys.device)                   # (K, dim)
+    coords = decode(keys, grid, dim)                          # (B, T, dim)
+    valid = keys != SENTINEL
+    nkeys = encode(coords[:, None] + offs[None, :, None],
+                   valid[:, None], grid)                      # (B, K, T)
+    idx, ok = lookup(keys, nkeys)
+    overflow = torch.zeros(keys.shape[0], dtype=torch.int32,
+                           device=keys.device)
+    return Halo26Spec(idx, ok, valid, overflow)
+
+
+def halo26_extend(x: torch.Tensor, spec: Halo26Spec, t: int,
+                  dim: int) -> torch.Tensor:
+    """Exact halo extend: (B, T, t^dim, C) -> (B, T, (t+2)^dim, C).
+
+    Port of `halo26_extend_xla`: one row gather per offset, zeros where
+    the neighbor is missing."""
+    B, T, cells, C = x.shape
+    ext = x.new_zeros(B, T, (t + 2) ** dim, C)
+    dev = x.device
+    ext[:, :, torch.as_tensor(body_cells(t, dim), device=dev)] = x
+    # row T is all zeros: missing neighbors read it
+    xp = torch.cat([x, x.new_zeros(B, 1, cells, C)], 1)
+    bidx = torch.arange(B, device=dev)[:, None]
+    for k, off in enumerate(halo_offsets(dim)):
+        ecells, scells = slab_cells(off, t)
+        rows = torch.where(spec.ok[:, k], spec.idx[:, k], T).long()
+        slab = xp[:, :, torch.as_tensor(scells, device=dev)][bidx, rows]
+        ext[:, :, torch.as_tensor(ecells, device=dev)] = slab
+    return ext

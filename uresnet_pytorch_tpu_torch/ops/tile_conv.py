@@ -1,0 +1,179 @@
+"""Tiled-dense sparse convolutions: halo'd submanifold convs, tile-link
+gathers and the space-to-depth fold of the stride-2 convs.
+
+Port of the inference path of `uresnet_pytorch_tpu/ops/tile_conv.py`. The
+two hot ops are the kernel wrappers of `ops/cuda/`, called by their names
+in this module: on a CPU tensor a wrapper runs its plain torch version, on
+a CUDA tensor the hand-written kernel. `chip_smoke.py` puts the plain
+versions in place of these two names to run the same model as reference
+on the card.
+
+Every submanifold conv runs fused: the reference declines its fused kernel
+for some (t, C) and falls back to conv + XLA epilogue (`tile_conv.py:
+292-302`); the Hopper kernel takes every shape, so there is no fallback.
+All ops keep the submanifold invariant: inactive cells hold exact zeros.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import halo_conv
+from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import windowed_gather
+from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
+from uresnet_pytorch_tpu_torch.ops.tile_graph import GatherSpec
+
+
+# ---------------------------------------------------------------------------
+# space-to-depth fold
+# ---------------------------------------------------------------------------
+
+def fold2(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, *spatial(even), C) -> (B, T, *spatial/2, 2^dim*C); block bits
+    x-major over channels."""
+    B, T = x.shape[:2]
+    sp = x.shape[2:-1]
+    C = x.shape[-1]
+    dim = len(sp)
+    shape = (B, T)
+    for s in sp:
+        shape += (s // 2, 2)
+    x = x.reshape(shape + (C,))
+    perm = [0, 1] + [2 + 2 * d for d in range(dim)] \
+        + [3 + 2 * d for d in range(dim)] + [2 + 2 * dim]
+    return x.permute(perm).reshape(
+        (B, T) + tuple(s // 2 for s in sp) + (2 ** dim * C,))
+
+
+def unfold2(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of fold2."""
+    B, T = x.shape[:2]
+    sp = x.shape[2:-1]
+    dim = len(sp)
+    C = x.shape[-1] // (2 ** dim)
+    x = x.reshape((B, T) + tuple(sp) + (2,) * dim + (C,))
+    perm = [0, 1]
+    for d in range(dim):
+        perm += [2 + d, 2 + dim + d]
+    perm += [2 + 2 * dim]
+    return x.permute(perm).reshape(
+        (B, T) + tuple(2 * s for s in sp) + (C,))
+
+
+def _corner_view(xc: torch.Tensor, tc: int, dim: int) -> torch.Tensor:
+    """(B, Tc, tc^dim, C) -> (B, Tc*2^dim, (tc/2)^dim * C): contiguous corner
+    half-regions, corner bits x-major (matches the parent spec rows)."""
+    B, Tc = xc.shape[:2]
+    C = xc.shape[-1]
+    th = tc // 2
+    x = xc.reshape((B, Tc) + (2, th) * dim + (C,))
+    perm = [0, 1] + [2 + 2 * d for d in range(dim)] \
+        + [3 + 2 * d for d in range(dim)] + [2 + 2 * dim]
+    return x.permute(perm).reshape(B, Tc * 2 ** dim, th ** dim * C)
+
+
+# ---------------------------------------------------------------------------
+# convolutions
+# ---------------------------------------------------------------------------
+
+def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
+                           w) -> torch.Tensor:
+    """x (B,T,t^dim,Cin), occ (B,T,t^dim) -> (B,T,t^dim,Cout), masked by
+    occupancy. Kernel B's raw entry point."""
+    out = halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t, dim)
+    return out * occ[..., None].to(out.dtype)
+
+
+def submanifold_conv_bn_act_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
+                                  w, a, b, alpha: float, mask) -> torch.Tensor:
+    """Inference fusion: mask * leaky_alpha(conv(x) * a + b) in one kernel.
+    An identity affine (a=1, b=0, alpha=1) gives conv + occupancy mask.
+    `occ` is unused (the mask carries it); kept for the reference's
+    signature."""
+    return halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t, dim,
+                     a=a.float().contiguous(), b=b.float().contiguous(),
+                     alpha=alpha, mask=mask.contiguous())
+
+
+def _assemble_impl(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],
+                   t_c: int, dim: int) -> torch.Tensor:
+    B, Tf, cells_h, C = blocks.shape
+    th = t_c // 2
+    flat = blocks.reshape(B, Tf, cells_h * C)
+    Tc = children[0].idx.shape[1]
+    out = blocks.new_zeros((B, Tc) + (t_c,) * dim + (C,))
+    for o, spec in enumerate(children):
+        obits = [(o >> (dim - 1 - d)) & 1 for d in range(dim)]
+        g = windowed_gather(flat, spec.idx, spec.ok).reshape(
+            (B, Tc) + (th,) * dim + (C,))
+        sl = (slice(None), slice(None)) + tuple(
+            slice(bit * th, (bit + 1) * th) for bit in obits)
+        out[sl] = g
+    return out.reshape(B, Tc, t_c ** dim, C)
+
+
+def _parent_corner_impl(xc: torch.Tensor, link, t_c: int,
+                        dim: int) -> torch.Tensor:
+    """(B, Tc, t_c^dim, C) coarse tiles -> (B, Tf, (t_c/2)^dim, C): each
+    fine tile pulls its corner of its parent from the coarse corner view,
+    one gather per octant. The octant specs have disjoint valid rows, so
+    their results sum."""
+    th = t_c // 2
+    C = xc.shape[-1]
+    cv = _corner_view(xc, t_c, dim)
+    out = None
+    for spec in link.parents:
+        g = windowed_gather(cv, spec.idx, spec.ok)
+        out = g if out is None else out + g
+    B, Tf = out.shape[:2]
+    return out.reshape(B, Tf, th ** dim, C)
+
+
+def assemble_children(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],
+                      t_c: int, dim: int) -> torch.Tensor:
+    """Per-fine-tile half-blocks (B, Tf, (t_c/2)^dim, C) -> coarse tiles
+    (B, Tc, t_c^dim, C); an identity link returns the blocks."""
+    if len(children) == 1:
+        return blocks
+    return _assemble_impl(blocks, children, t_c, dim)
+
+
+def downsample_conv_tiled(x, link, t_f: int, t_c: int, dim: int,
+                          w) -> torch.Tensor:
+    """Stride-2 kernel-2 conv between tile grids.
+
+    x (B,Tf,t_f^dim,Cin), w (2^dim,Cin,Cout) -> (B,Tc,t_c^dim,Cout). The
+    fold GEMM sums in f32 and rounds once, as the reference's einsum."""
+    dt = x.dtype
+    B, Tf = x.shape[:2]
+    Cin, Cout = w.shape[1], w.shape[2]
+    xs = x.reshape((B, Tf) + (t_f,) * dim + (Cin,))
+    xf = fold2(xs).reshape(B, Tf, (t_f // 2) ** dim, 2 ** dim * Cin)
+    wd = w.reshape(2 ** dim * Cin, Cout).to(dt)
+    blocks = torch.matmul(xf.float(), wd.float()).to(dt)
+    return assemble_children(blocks, link.children, t_c, dim)
+
+
+def upsample_conv_tiled(xc, link, occ_f, t_f: int, t_c: int, dim: int,
+                        w) -> torch.Tensor:
+    """Stride-2 kernel-2 transposed conv (decoder) over the down link, so
+    the encoder's exact sites come back.
+
+    xc (B,Tc,t_c^dim,Cin) -> (B,Tf,t_f^dim,Cout), masked by fine occupancy."""
+    dt = xc.dtype
+    Cin, Cout = w.shape[1], w.shape[2]
+    th = t_f // 2
+    if len(link.children) == 1:
+        # identity link: each whole coarse tile is the fine tile's half-block
+        B, Tf = xc.shape[:2]
+        blocks = xc.reshape(B, Tf, th ** dim, Cin)
+    else:
+        blocks = _parent_corner_impl(xc, link, t_c, dim)
+        B, Tf = blocks.shape[:2]
+    wu = w.permute(1, 0, 2).reshape(Cin, 2 ** dim * Cout).to(dt)
+    outf = torch.matmul(blocks.float(), wu.float()).to(dt)
+    outf = outf.reshape((B, Tf) + (th,) * dim + (2 ** dim * Cout,))
+    out = unfold2(outf).reshape(B, Tf, t_f ** dim, Cout)
+    return out * occ_f[..., None].to(dt)

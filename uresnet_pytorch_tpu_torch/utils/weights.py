@@ -1,0 +1,84 @@
+"""Weights between the reference's flax `variables` tree and the port.
+
+`load_jax_variables(module, variables)` takes the JAX variables as nested
+dicts of arrays (numpy, or anything `np.asarray` accepts) and fills the
+port's parameters (`params` collection) and buffers (`batch_stats`) by
+dotted name, e.g. `params/enc0_block0/conv_a/w` -> `enc0_block0.conv_a.w`.
+`init_params(cfg, generator)` makes such a tree from the reference's
+initializers without JAX.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from uresnet_pytorch_tpu_torch.config import URESNetConfig
+
+_COLLECTIONS = ("params", "batch_stats")
+
+
+def _flatten(tree: Mapping, prefix: str = ""):
+    for k, v in tree.items():
+        name = f"{prefix}.{k}" if prefix else str(k)
+        if isinstance(v, Mapping):
+            yield from _flatten(v, name)
+        else:
+            yield name, v
+
+
+@torch.no_grad()
+def load_jax_variables(module: nn.Module, variables: Mapping) -> None:
+    """Copy every `params` and `batch_stats` leaf into `module`.
+
+    Raises KeyError for a leaf the module lacks or a module tensor the
+    tree lacks, ValueError for a shape mismatch. Other collections (the
+    reference's `diag` outputs) are not state and are skipped."""
+    targets = {"params": dict(module.named_parameters()),
+               "batch_stats": dict(module.named_buffers())}
+    for coll in _COLLECTIONS:
+        filled = set()
+        for name, value in _flatten(variables.get(coll, {})):
+            if name not in targets[coll]:
+                raise KeyError(f"{coll}.{name}: no such tensor in "
+                               f"{type(module).__name__}")
+            dst = targets[coll][name]
+            src = torch.from_numpy(np.array(value, dtype=np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{coll}.{name}: shape {tuple(src.shape)}, "
+                                 f"module has {tuple(dst.shape)}")
+            dst.copy_(src)
+            filled.add(name)
+        missing = sorted(set(targets[coll]) - filled)
+        if missing:
+            raise KeyError(f"{coll}: no entry for {missing}")
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for name, value in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return tree
+
+
+def init_params(cfg: URESNetConfig, generator: torch.Generator) -> dict:
+    """A fresh `{"params": ..., "batch_stats": ...}` tree of numpy arrays
+    for the sparse U-ResNet at `cfg`, drawn from `generator` with the
+    reference's initializers (He normal for conv stacks, lecun_normal for
+    the head, BN scale 1 / bias 0 / mean 0 / var 1)."""
+    from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
+        UResNetSparseTiled)
+    model = UResNetSparseTiled(cfg, generator=generator)
+    return {
+        "params": _nest({n: p.detach().numpy().copy()
+                         for n, p in model.named_parameters()}),
+        "batch_stats": _nest({n: b.numpy().copy()
+                              for n, b in model.named_buffers()}),
+    }
