@@ -18,6 +18,12 @@ _CONFIG3 = dict(uresnet_filters=16, uresnet_num_strides=5, spatial_size=512,
                 reps=2, max_voxels=131072, capacity_factor=0.5,
                 min_level_capacity=2048, tile_size=4, tile_occupancy=4.5,
                 tile_sizes=(4, 2, 2, 2, 2), compute_dtype="bfloat16")
+# config 4 as benchmarks/run_all.py's _sparse_cfg(False, 2) builds it
+_CONFIG4 = dict(_CONFIG3, batch_size=2, remat_mode="stage_dots",
+                learning_rate=0.001)
+_TRAINING_FIELDS = ("bn_momentum", "remat_mode", "batch_size",
+                    "learning_rate", "seed", "weight_key", "model_path",
+                    "resume", "param_dtype")
 
 
 def test_fields_are_the_references_with_its_defaults():
@@ -27,11 +33,14 @@ def test_fields_are_the_references_with_its_defaults():
     for f in ours:
         assert f.name in ref, f.name
         assert f.default == ref[f.name], f.name
+    names = {f.name for f in ours}
+    assert all(name in names for name in _TRAINING_FIELDS)
 
 
 @pytest.mark.parametrize("kw", [
     {},                                              # defaults, auto capacity
     _CONFIG3,                                        # config 3
+    _CONFIG4,                                        # config 4
     dict(uresnet_filters=4, uresnet_num_strides=3, spatial_size=16,
          max_voxels=256, min_level_capacity=32, tile_sizes=(4, 2, 2)),
     dict(data_dim=2, spatial_size=64, uresnet_num_strides=4,
@@ -60,6 +69,7 @@ def test_derived_sizes_match_reference(kw):
     dict(tile_sizes=(4, 8, 4, 2, 2)),
     dict(tile_occupancies=(1.0,)),
     dict(spatial_size=16, uresnet_num_strides=5),
+    dict(remat_mode="full"),
 ])
 def test_rejects_what_the_reference_rejects(kw):
     kw = {"spatial_size": 64, **kw}

@@ -80,9 +80,10 @@ def _reference(cfg, args):
 
 
 def _port(cfg, variables, args):
-    model = construct("uresnet_sparse")(cfg)
+    model = construct("uresnet_sparse")(cfg, device="cpu")
     load_jax_variables(model, variables)
-    logits, diag = model(*(torch.from_numpy(a) for a in args))
+    with torch.no_grad():
+        logits, diag = model(*(torch.from_numpy(a) for a in args))
     assert int(diag["overflow"]) == 0
     assert int(diag["tile_spill"]) == 0 and int(diag["vox_spill"]) == 0
     return logits.numpy()
@@ -124,7 +125,7 @@ def test_slice_bf16_class_agreement(f32_reference):
 
 def test_load_jax_variables_rejects_bad_trees():
     cfg = _tcfg("float32")
-    model = construct("uresnet_sparse")(cfg)
+    model = construct("uresnet_sparse")(cfg, device="cpu")
     good = init_params(cfg, torch.Generator().manual_seed(0))
     load_jax_variables(model, good)
     bad = init_params(cfg, torch.Generator().manual_seed(0))
@@ -163,6 +164,7 @@ _IMPORT_CHECK = """
 import sys
 import torch
 import uresnet_pytorch_tpu_torch, uresnet_pytorch_tpu_torch.models
+import uresnet_pytorch_tpu_torch.trainval
 from uresnet_pytorch_tpu_torch.models import construct
 from uresnet_pytorch_tpu_torch.ops import cuda
 from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
@@ -172,11 +174,12 @@ from uresnet_pytorch_tpu_torch.iotools.synthetic import generate_event
 cfg = URESNetConfig(uresnet_filters=4, uresnet_num_strides=2, spatial_size=16,
                     max_voxels=64, min_level_capacity=16, reps=1,
                     compute_dtype="float32")
-model = construct("uresnet_sparse")(cfg)
+model = construct("uresnet_sparse")(cfg, device="cpu")
 load_jax_variables(model, init_params(cfg, torch.Generator().manual_seed(0)))
 coords = torch.randint(0, 16, (1, 64, 3), dtype=torch.int32)
-logits, _ = model(coords, torch.ones(1, 64),
-                  torch.tensor([64], dtype=torch.int32))
+with torch.no_grad():
+    logits, _ = model(coords, torch.ones(1, 64),
+                      torch.tensor([64], dtype=torch.int32))
 assert logits.shape == (1, 64, 5) and torch.isfinite(logits).all()
 assert cuda._lib is None, "a CUDA kernel library was built or loaded"
 assert len(generate_event(0, 0, 16, 3, 64)[0]) > 0

@@ -9,8 +9,8 @@ own ports of the reference's configuration and event generator.
 Layout mirrors the reference so each counterpart is easy to find:
 `config.py`, `iotools/`, `ops/` (keys, halo maps, tile graph, tiled convs),
 `ops/cuda/` (kernel wrappers beside their plain torch versions; the CUDA
-sources live in `csrc/` and are built on first use), `models/` and
-`utils/weights.py`.
+sources live in `csrc/` and are built on first use), `models/`,
+`trainval.py` and `utils/weights.py`.
 """
 
 __version__ = "0.1.0"

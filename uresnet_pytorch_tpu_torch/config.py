@@ -1,12 +1,12 @@
 """Typed configuration of the port's sparse U-ResNet.
 
 Port of `uresnet_pytorch_tpu/config.py`, cut to the fields the inference
-path reads. Every field keeps the reference's name, default and checks,
-and the derived sizes (`n_planes`, `level_capacity`, `tile_occupancy_at`)
-are computed the same way, so one set of keyword arguments builds the same
-model in both packages. The reference's model_name (the port builds by
-`models.construct(name)`), io, training, restore and correction-budget
-fields have no use here yet and are left out.
+and training paths read. Every field keeps the reference's name, default
+and checks, and the derived sizes (`n_planes`, `level_capacity`,
+`tile_occupancy_at`) are computed the same way, so one set of keyword
+arguments builds the same model in both packages. The reference's
+model_name (the port builds by `models.construct(name)`), io, CLI and
+correction-budget fields have no use here yet and are left out.
 """
 
 from __future__ import annotations
@@ -31,6 +31,7 @@ class URESNetConfig:
     reps: int = 2                       # residual blocks per level
     width_ramp: str = "linear"          # {linear, geometric}
     leaky_relu_slope: float = 0.0
+    bn_momentum: float = 0.9            # running = momentum*running + (1-momentum)*batch
     bn_eps: float = 1e-4
     input_merge_mode: str = "sum"       # duplicate-coordinate merge: {sum, mean, max, last}
 
@@ -46,13 +47,29 @@ class URESNetConfig:
     tile_sizes: Optional[Tuple[int, ...]] = None   # per-level t; stays or halves
     tile_occupancies: Optional[Tuple[float, ...]] = None
     min_tiles: int = 64                 # floor on per-level tile capacity
+    # training recompute: "stage" checkpoints whole encoder/decoder stages,
+    # "stage_dots" also saves their halo-conv outputs, "stage_dots_deep"
+    # does that except at level 0, "none" saves everything
+    remat_mode: str = "stage"    # {stage, stage_dots, stage_dots_deep, none}
+
+    # ---- training ----
+    batch_size: int = 1
+    learning_rate: float = 0.001        # Adam (b1 0.9, b2 0.999, eps 1e-8)
+    seed: int = 0                       # parameter init
+    weight_key: str = ""                # non-empty => per-voxel loss weights
+    model_path: str = ""                # checkpoints: not ported yet
+    resume: bool = False
 
     # ---- precision ----
     compute_dtype: str = "bfloat16"     # {bfloat16, float32}
+    param_dtype: str = "float32"        # unused, as in the reference
 
     def __post_init__(self):
         if self.data_dim not in (2, 3):
             raise ValueError(f"data_dim must be 2 or 3, got {self.data_dim}")
+        if self.remat_mode not in ("stage", "stage_dots",
+                                   "stage_dots_deep", "none"):
+            raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
         if self.width_ramp not in ("linear", "geometric"):
             raise ValueError(f"unknown width_ramp {self.width_ramp!r}")
         if self.input_merge_mode not in ("sum", "mean", "max", "last"):

@@ -4,6 +4,8 @@
 //   fused_halo_conv_bn_act (_fused_kernel_v2_bn)  -> halo_conv_bn_act below
 //   halo_conv_fwd v2 (_fused_kernel_v2) and v1 (_fused_kernel) -> halo_conv_raw
 //   _preslice0_pallas (the lane repack feeding both) -> not needed
+//   the d_x half of halo_conv_bwd, and halo_conv_fwd on flipped weights ->
+//   halo_conv_raw on flip_weights(w) (the adjoint stencil)
 // The TPU kernels gather neighbor slabs with one-hot MXU matmuls over
 // windows + correction rows, in lane-packed layouts that only exist for
 // certain (t, C). Hopper has native indexed loads: each block reads its
@@ -17,7 +19,8 @@
 // loads of neighbor rows, then shared-memory traffic), not by tensor-core
 // FLOPs. Design: one block of 4 warps per 64 output rows (one t=4 tile, or
 // eight t=2 tiles). The block stages its tiles' (t+2)^dim x Cin extended
-// blocks in shared memory as bf16 (16-byte loads when Cin % 8 == 0),
+// blocks in shared memory as bf16 (16-byte loads when Cin % 8 == 0;
+// halo_stage.cuh, shared with kernel C),
 // padded to 16 channels. Each warp owns 16 rows x Cout and runs mma.sync
 // m16n8k16 (bf16 in, f32 accumulate) over the 3^dim offsets, reading A
 // rows at the offset's shifted ext position from shared memory and B
@@ -29,11 +32,11 @@
 // past the live prefix (blive = 0) write zeros; a block with no live tile
 // skips the staging and the MMAs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "halo_stage.cuh"
 
 namespace {
+
+using halo::ipow;
 
 constexpr int kRows = 64;                 // output rows per block
 constexpr int kWarps = kRows / 16;        // each warp: 16 rows x Cout
@@ -41,58 +44,22 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;                   // bf16 pad per smem row (bank spread)
 constexpr int kMaxTiles = 16;             // tiles per block (dim 2, t = 2)
 
-__host__ __device__ __forceinline__ int ipow(int b, int e) {
-  int r = 1;
-  for (int i = 0; i < e; ++i) r *= b;
-  return r;
-}
-
-__device__ __forceinline__ void mma_16816(float* c, const uint32_t* a,
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
-
-// n / d for the block-uniform runtime divisors of the staging loop, as a
-// multiply and shift (Granlund-Montgomery; exact for n < 2^31)
-struct FastDiv {
-  unsigned d, m, s;
-  __host__ FastDiv() : d(1), m(0), s(0) {}
-  __host__ explicit FastDiv(unsigned div) : d(div) {
-    for (s = 0; s < 32; ++s)
-      if ((1u << s) >= d) break;
-    const unsigned long long one = 1;
-    m = (unsigned)(((one << 32) * ((one << s) - d)) / d + 1);
-  }
-  __device__ __forceinline__ unsigned div(unsigned n) const {
-    return (__umulhi(n, m) + n) >> s;
-  }
-};
 
 __device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
   return __ldg(reinterpret_cast<const unsigned int*>(p));
 }
 
-struct Shape {
-  int T, t, dim, Cin, Cout;
-  int cells, ecells, K;      // t^dim, (t+2)^dim, 3^dim
-  int tiles, slices;         // tiles per block; 64-row slices per tile
-  int cpad, sa;              // Cin padded to 16; smem row stride (bf16)
-  int vec;                   // 1: stage 8 channels per 16-byte load
-  FastDiv by_e, by_groups, by_tile;   // (t+2), channel groups, per-tile units
+// the staging geometry (width = cpad: every channel, padded to 16) plus the
+// output side
+struct Shape : halo::Stage {
+  int Cout;
+  int slices;                // 64-row slices per tile
+  int cpad;                  // Cin padded to 16
 };
 
-// x (B,T,cells,Cin) bf16, wt (K,Cout,cpad) bf16 (the weights transposed,
-// zero past Cin), idx/ok (B,K-1,T) in
-// halo_offsets order (full stencil offset k, center excluded), live (B,T),
-// a/b (Cout) f32, mask (B,T,cells), out (B,T,cells,Cout) bf16.
 template <int NT, bool kEpilogue>
 __global__ void __launch_bounds__(kThreads)
 halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
@@ -104,8 +71,6 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
   const int ev = blockIdx.y;
   const int tile0 = (blockIdx.x / s.slices) * s.tiles;
   const int slice = blockIdx.x % s.slices;
-  const int E = s.t + 2;
-  const int center = s.K / 2;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, q = lane & 3;
   const size_t evrow = (size_t)ev * s.T;
@@ -116,22 +81,7 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
 
   if (threadIdx.x == 0) any_live = 0;
   __syncthreads();
-  for (int i = threadIdx.x; i < s.tiles * s.K; i += kThreads) {
-    const int j = i / s.K, k = i - j * s.K;
-    const int tile = tile0 + j;
-    int r = -1;
-    if (tile < s.T && live[evrow + tile]) {
-      if (k == center) {
-        r = tile;
-        any_live = 1;
-      } else {
-        const int k26 = k < center ? k : k - 1;
-        const size_t m = ((size_t)ev * (s.K - 1) + k26) * s.T + tile;
-        r = ok[m] ? idx[m] : -1;
-      }
-    }
-    nbr[i] = r;
-  }
+  halo::build_nbr(nbr, &any_live, idx, ok, live, ev, tile0, s);
   __syncthreads();
 
   // rows owned by this thread's fragments: r0 = 16*warp + g, r1 = r0 + 8
@@ -141,15 +91,9 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
     const int m = warp * 16 + g + 8 * h;
     const int j = s.slices == 1 ? m / s.cells : 0;
     const int cell = s.slices == 1 ? m - j * s.cells : slice * kRows + m;
-    int rem = cell, e = 0, me = 1;
-    for (int ax = 0; ax < s.dim; ++ax) {   // last axis fastest
-      e += (rem % s.t + 1) * me;
-      rem /= s.t;
-      me *= E;
-    }
     rtile[h] = j;
     rcell[h] = cell;
-    rbase[h] = j * s.ecells + e;           // ext row of the cell itself
+    rbase[h] = j * s.ecells + halo::cell_ext_row(cell, s.t, s.dim);
   }
 
   float acc[NT][4];
@@ -158,50 +102,11 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
 
   if (any_live) {
-    // Stage the extended tiles. Ext cell e (row-major, last axis fastest)
-    // takes, per axis, ext coord 0 from the -1 neighbor's cell t-1, coord
-    // t+1 from the +1 neighbor's cell 0 and coords 1..t from the tile
-    // itself (the slab_cells geometry of ops/halo.py).
-    const __nv_bfloat16* xev = x + evrow * s.cells * s.Cin;
-    const int unit = s.vec ? 8 : 1;        // channels per staged element
-    const int groups = s.cpad / unit;
-    const int per_tile = s.ecells * groups;
-    for (int i = threadIdx.x; i < s.tiles * per_tile; i += kThreads) {
-      const int j = s.by_tile.div(i);
-      const int rest = i - j * per_tile;
-      const int e = s.by_groups.div(rest);
-      const int c = (rest - e * groups) * unit;
-      int rem = e, kfull = 0, scell = 0, mk = 1, ms = 1;
-      for (int ax = 0; ax < s.dim; ++ax) {
-        const int nxt = s.by_e.div(rem);
-        const int ea = rem - nxt * E;
-        rem = nxt;
-        kfull += (ea == 0 ? 0 : (ea == s.t + 1 ? 2 : 1)) * mk;
-        scell += (ea == 0 ? s.t - 1 : (ea == s.t + 1 ? 0 : ea - 1)) * ms;
-        mk *= 3;
-        ms *= s.t;
-      }
-      const int r = nbr[j * s.K + kfull];
-      const bool hit = r >= 0 && c < s.Cin;
-      const size_t src = hit ? ((size_t)r * s.cells + scell) * s.Cin + c : 0;
-      __nv_bfloat16* dst = ext_s + (size_t)(j * s.ecells + e) * s.sa + c;
-      if (s.vec) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (hit) v = __ldg(reinterpret_cast<const uint4*>(xev + src));
-        *reinterpret_cast<uint4*>(dst) = v;
-      } else {
-        *dst = hit ? xev[src] : __float2bfloat16(0.f);
-      }
-    }
+    halo::stage_ext(ext_s, x + evrow * s.cells * s.Cin, nbr, 0, s);
     __syncthreads();
 
     for (int k = 0; k < s.K; ++k) {
-      int rem = k, doff = 0, me = 1;
-      for (int ax = 0; ax < s.dim; ++ax) {
-        doff += (rem % 3 - 1) * me;
-        rem /= 3;
-        me *= E;
-      }
+      const int doff = halo::offset_shift(k, s.dim, s.t + 2);
       const __nv_bfloat16* a0p = ext_s + (size_t)(rbase[0] + doff) * s.sa + 2 * q;
       const __nv_bfloat16* a1p = ext_s + (size_t)(rbase[1] + doff) * s.sa + 2 * q;
       // B fragment: wt[k][n*8 + g][c0 + 2q .. +1] and the same at c0 + 8
@@ -212,7 +117,7 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
           const __nv_bfloat16* bn = wk + (size_t)n * 8 * s.cpad + c0;
-          mma_16816(acc[n], af, ldg32(bn), ldg32(bn + 8));
+          halo::mma_16816(acc[n], af, ldg32(bn), ldg32(bn + 8));
         }
       }
     }
@@ -266,30 +171,24 @@ int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
              const void* live, const void* a, const void* b, const void* mask,
              float alpha, void* out, int B, int T, int t, int dim, int Cin,
              int Cout, cudaStream_t stream) {
-  Shape s;
-  s.T = T; s.t = t; s.dim = dim; s.Cin = Cin; s.Cout = Cout;
   if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout % 8 || Cout > 128)
     return (int)cudaErrorInvalidValue;
-  s.cells = ipow(t, dim);
-  s.ecells = ipow(t + 2, dim);
-  s.K = ipow(3, dim);
-  if (s.cells <= kRows) {
-    if (kRows % s.cells) return (int)cudaErrorInvalidValue;
-    s.tiles = kRows / s.cells;
+  Shape s;
+  s.Cout = Cout;
+  const int cells = ipow(t, dim);
+  int tiles;
+  if (cells <= kRows) {
+    if (kRows % cells) return (int)cudaErrorInvalidValue;
+    tiles = kRows / cells;
     s.slices = 1;
   } else {
-    if (s.cells % kRows) return (int)cudaErrorInvalidValue;
-    s.tiles = 1;
-    s.slices = s.cells / kRows;
+    if (cells % kRows) return (int)cudaErrorInvalidValue;
+    tiles = 1;
+    s.slices = cells / kRows;
   }
-  if (s.tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
+  if (tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
   s.cpad = (Cin + 15) / 16 * 16;
-  s.sa = s.cpad + kPad;
-  s.vec = Cin % 8 == 0 && (uintptr_t)x % 16 == 0;
-  const int unit = s.vec ? 8 : 1;
-  s.by_e = FastDiv(t + 2);
-  s.by_groups = FastDiv(s.cpad / unit);
-  s.by_tile = FastDiv(s.ecells * (s.cpad / unit));
+  s.init(T, t, dim, Cin, tiles, s.cpad, kPad, (uintptr_t)x % 16 == 0);
   switch (Cout / 8) {
 #define HALO_CONV_CASE(N) \
   case N: return launch<N, kEpilogue>(x, wt, idx, ok, live, a, b, mask, alpha, out, B, s, stream);

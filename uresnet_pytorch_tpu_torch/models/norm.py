@@ -1,36 +1,98 @@
-"""Masked BatchNorm over active voxel rows, eval form.
+"""Masked BatchNorm over active voxel rows.
 
-Port of `uresnet_pytorch_tpu/models/norm.py` in eval mode: the running
-moments fold with scale and bias into one per-channel affine, computed in
-f32 and rounded once to the activation dtype. `affine` is the reference's
-`return_affine` form: it hands that affine to a fused conv epilogue
-instead of applying it. Eval needs no mask (the moments are the running
-ones); train-mode masked moments are not ported yet.
+Port of `uresnet_pytorch_tpu/models/norm.py`. Train mode takes the moments
+in f32 over the cells where the mask is set, across every event and row:
+`mean = sum(x*m) / count`, `var = sum((x*m)^2) / count - mean^2` clamped at
+0, `count = max(sum(m), 1)`. Eval mode uses the running moments. Either
+way scale, bias and moments fold into one per-channel affine computed in
+f32 and rounded once to the activation dtype; `affine` hands that affine
+to a fused conv epilogue instead of applying it.
+
+x may be a pair (x1, x2) standing for their channel concat (the decoder's
+skip, never materialized): the moments and the affine are per channel, so
+each half is normalized with its own slice and a pair comes back.
+
+Running moments follow the reference's flax convention, not torch's
+`nn.BatchNorm`: `running = momentum * running + (1 - momentum) * batch`
+with momentum 0.9 and the biased batch variance. A train-mode forward only
+records its batch moments; `commit_batch_moments` applies them once after
+the step. Under recompute (torch.utils.checkpoint) the forward runs twice
+and records the same moments twice, so an in-place update there would be
+applied twice.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 
 class MaskedBatchNorm(nn.Module):
-    def __init__(self, channels: int, epsilon: float = 1e-4):
+    def __init__(self, channels: int, epsilon: float = 1e-4,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.batch_moments = None   # (mean, var) of the last train forward
 
-    def affine(self, dtype: torch.dtype):
-        """Folded (a, b) with x * a + b == BN(x), rounded once to dtype."""
-        inv = torch.rsqrt(self.var + self.epsilon)
+    def affine(self, dtype: torch.dtype, mean=None, var=None):
+        """Folded (a, b) with x * a + b == BN(x), rounded once to dtype;
+        the running moments unless others are given."""
+        mean = self.mean if mean is None else mean
+        var = self.var if var is None else var
+        inv = torch.rsqrt(var + self.epsilon)
         a = (self.scale * inv).to(dtype)
-        b = (self.bias - self.mean * self.scale * inv).to(dtype)
+        b = (self.bias - mean * self.scale * inv).to(dtype)
         return a, b
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (..., C) -> BN(x) in x's dtype."""
-        a, b = self.affine(x.dtype)
-        return x * a + b
+    def forward(self, x, mask: Optional[torch.Tensor] = None,
+                train: bool = False):
+        """x (..., C) or a pair of (..., C1), (..., C2); mask (...) bool,
+        read in train mode only. Returns BN(x) in x's dtype (a pair for a
+        pair)."""
+        pair = isinstance(x, tuple)
+        parts = x if pair else (x,)
+        mean = var = None
+        if train:
+            m = mask[..., None].float()
+            count = m.sum().clamp(min=1.0)
+            red = tuple(range(parts[0].dim() - 1))
+            means, sqs = [], []
+            for p in parts:
+                xf = p.float() * m
+                mu = xf.sum(red) / count
+                means.append(mu)
+                sqs.append((xf * xf).sum(red) / count - mu * mu)
+            mean = torch.cat(means)
+            var = torch.maximum(torch.cat(sqs), torch.zeros_like(mean))
+            self.batch_moments = (mean.detach(), var.detach())
+        a, b = self.affine(parts[0].dtype, mean, var)
+        out, lo = [], 0
+        for p in parts:
+            hi = lo + p.shape[-1]
+            out.append(p * a[lo:hi] + b[lo:hi])
+            lo = hi
+        return tuple(out) if pair else out[0]
+
+    @torch.no_grad()
+    def commit(self) -> None:
+        """Fold the recorded batch moments into the running ones, once."""
+        if self.batch_moments is None:
+            return
+        mean, var = self.batch_moments
+        self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
+        self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
+        self.batch_moments = None
+
+
+def commit_batch_moments(module: nn.Module) -> None:
+    """Apply every MaskedBatchNorm's recorded train-mode moments once."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.commit()

@@ -1,29 +1,45 @@
-"""Submanifold-sparse U-ResNet on the tiled-dense engine, inference path.
+"""Submanifold-sparse U-ResNet on the tiled-dense engine.
 
-Port of the eval forward of `uresnet_pytorch_tpu/models/
-uresnet_sparse_tiled.py` (with `BNAct` and `_conv_init` from
-`models/uresnet_sparse.py`). Module and parameter names follow the
-reference's flax tree (`enc0_block0.conv_a.w`, `down0_w`, `head_w`, ...)
-so `utils/weights.load_jax_variables` maps one onto the other by name.
+Port of `uresnet_pytorch_tpu/models/uresnet_sparse_tiled.py` (with `BNAct`
+and `_conv_init` from `models/uresnet_sparse.py`). Module and parameter
+names follow the reference's flax tree (`enc0_block0.conv_a.w`, `down0_w`,
+`head_w`, ...) so `utils/weights.load_jax_variables` maps one onto the other
+by name.
 
-Eval structure, as in the reference: every submanifold conv runs with its
-epilogue fused (the stem and each block's conv_b with the occupancy mask,
-conv_a with the following BN folded in), and the decoder concatenates the
-skip before its first block.
+Eval (`train=False`), as in the reference: every submanifold conv runs with
+its epilogue fused (the stem and each block's conv_b with the occupancy
+mask, conv_a with the following BN folded in), and the decoder
+concatenates the skip before its first block. The caller turns autograd
+off (`torch.no_grad()`).
+
+Train (`train=True`): every BN takes batch moments over the active cells
+(recorded, then applied by `norm.commit_batch_moments` after the step),
+every submanifold conv is the raw `halo_conv_op` times occupancy, and the
+decoder hands its first block the unmaterialized (upsampled, skip) pair.
+`cfg.remat_mode` recomputes stages in backward with
+`torch.utils.checkpoint` at the reference's boundaries (each encoder
+stage, each decoder stage, the head; the stem stays outside): "stage"
+recomputes everything, "stage_dots" saves the halo-conv outputs and
+recomputes the rest, "stage_dots_deep" does that except at level 0, which
+recomputes everything, and "none" saves everything.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from uresnet_pytorch_tpu_torch.config import URESNetConfig
 from uresnet_pytorch_tpu_torch.models import register_model
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
 from uresnet_pytorch_tpu_torch.ops.tile_conv import (
-    downsample_conv_tiled, submanifold_conv_bn_act_tiled, upsample_conv_tiled)
+    downsample_conv_tiled, submanifold_conv_bn_act_tiled,
+    submanifold_conv_tiled, upsample_conv_tiled)
 from uresnet_pytorch_tpu_torch.ops.tile_graph import (
     build_tile_graph, graph_overflows, graph_spills, tile_size_at)
 
@@ -45,46 +61,62 @@ def _lecun_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
 
 
 class BNAct(nn.Module):
-    """Masked BN then LeakyReLU (ReLU at slope 0), in the compute dtype."""
+    """Masked BN then LeakyReLU (ReLU at slope 0), in the compute dtype;
+    pair-aware, as MaskedBatchNorm."""
 
     def __init__(self, cfg: URESNetConfig, channels: int):
         super().__init__()
         self.cfg = cfg
-        self.MaskedBatchNorm_0 = MaskedBatchNorm(channels,
-                                                 epsilon=cfg.bn_eps)
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(
+            channels, epsilon=cfg.bn_eps, momentum=cfg.bn_momentum)
 
     def affine(self):
         """The folded eval affine for a fused conv epilogue."""
         return self.MaskedBatchNorm_0.affine(_DTYPES[self.cfg.compute_dtype])
 
-    def forward(self, x):
-        y = self.MaskedBatchNorm_0(x)
+    def forward(self, x, mask=None, train: bool = False):
+        y = self.MaskedBatchNorm_0(x, mask, train)
         s = self.cfg.leaky_relu_slope
-        y = nn.functional.leaky_relu(y, s) if s > 0 else torch.relu(y)
-        return y.to(_DTYPES[self.cfg.compute_dtype])
+        dt = _DTYPES[self.cfg.compute_dtype]
+
+        def act(v):
+            # the reference's where(v >= 0, v, s*v): its gradient at 0 is 1
+            v = torch.where(v >= 0, v, s * v) if s > 0 else torch.relu(v)
+            return v.to(dt)
+        return tuple(act(p) for p in y) if isinstance(y, tuple) else act(y)
 
 
-def _bn_flat(bnact: BNAct, y, mask):
+def _bn_flat(bnact: BNAct, y, mask, train: bool = False):
     """BNAct, then re-zero inactive cells (the BN bias would leak nonzeros
     into the dense tile interior)."""
-    out = bnact(y)
+    out = bnact(y, mask, train)
+    if isinstance(out, tuple):
+        occ = mask[..., None].to(out[0].dtype)
+        return tuple(p * occ for p in out)
     return out * mask[..., None].to(out.dtype)
 
 
 class SMConvTile(nn.Module):
-    """Submanifold conv with its fused epilogue (a, b, alpha, mask)."""
+    """Submanifold conv: raw with a gradient (train), or with its fused
+    epilogue (a, b, alpha, mask) (eval)."""
 
     def __init__(self, cfg: URESNetConfig, cin: int, features: int):
         super().__init__()
         self.cfg = cfg
         self.w = nn.Parameter(torch.empty(3 ** cfg.data_dim, cin, features))
 
-    def forward(self, x, level, t, epilogue):
-        a, b, alpha, mask = epilogue
+    def forward(self, x, level, t, epilogue=None):
         dt = _DTYPES[self.cfg.compute_dtype]
+        dim = self.cfg.data_dim
+        if epilogue is None:
+            x = tuple(p.to(dt) for p in x) if isinstance(x, tuple) \
+                else x.to(dt)
+            return submanifold_conv_tiled(x, level.occ, level.halo, t, dim,
+                                          self.w)
+        a, b, alpha, mask = epilogue
         return submanifold_conv_bn_act_tiled(
-            x.to(dt), level.occ, level.halo, t, self.cfg.data_dim, self.w,
-            a, b, alpha, mask)
+            x.to(dt), level.occ, level.halo, t, dim, self.w, a, b, alpha,
+            mask)
 
 
 def _mask_epilogue(features: int, mask, device):
@@ -95,7 +127,8 @@ def _mask_epilogue(features: int, mask, device):
 
 class SparseResBlockTile(nn.Module):
     """Pre-activation residual block; per-row linear shortcut when the
-    channel count changes."""
+    channel count changes. In train mode x may be the decoder's (up, skip)
+    pair, which the shortcut, bn_a and conv_a each take channel-separably."""
 
     def __init__(self, cfg: URESNetConfig, cin: int, features: int):
         super().__init__()
@@ -108,26 +141,47 @@ class SparseResBlockTile(nn.Module):
         self.bn_b = BNAct(cfg, features)
         self.conv_b = SMConvTile(cfg, features, features)
 
-    def forward(self, x, level, mask, t):
+    def forward(self, x, level, mask, t, train: bool = False):
         dt = _DTYPES[self.cfg.compute_dtype]
         shortcut = x
         if hasattr(self, "w_shortcut"):
-            wc = self.w_shortcut[0].to(dt)
-            shortcut = torch.matmul(x.to(dt).float(), wc.float()).to(dt)
-        y = _bn_flat(self.bn_a, x, mask)
-        # bn_b follows conv_a with nothing between: its folded affine,
-        # activation and re-mask run in conv_a's epilogue
-        a, b = self.bn_b.affine()
-        y = self.conv_a(y, level, t, (a, b, self.cfg.leaky_relu_slope, mask))
-        y = self.conv_b(y, level, t,
-                        _mask_epilogue(self.features, mask, y.device))
+            wc = self.w_shortcut[0].to(dt).float()
+
+            def nin(p, ws):
+                return torch.matmul(p.to(dt).float(), ws)
+            if isinstance(x, tuple):
+                C1 = x[0].shape[-1]
+                shortcut = (nin(x[0], wc[:C1]) + nin(x[1], wc[C1:])).to(dt)
+            else:
+                shortcut = nin(x, wc).to(dt)
+        y = _bn_flat(self.bn_a, x, mask, train)
+        if train:
+            y = self.conv_a(y, level, t)
+            y = _bn_flat(self.bn_b, y, mask, train)
+            y = self.conv_b(y, level, t)
+        else:
+            # bn_b follows conv_a with nothing between: its folded affine,
+            # activation and re-mask run in conv_a's epilogue
+            a, b = self.bn_b.affine()
+            y = self.conv_a(y, level, t,
+                            (a, b, self.cfg.leaky_relu_slope, mask))
+            y = self.conv_b(y, level, t,
+                            _mask_epilogue(self.features, mask, y.device))
         return shortcut + y
+
+
+# stage_dots: keep the halo-conv outputs, recompute everything else (the
+# operator is registered by ops/cuda/halo_conv.py, which tile_conv imports)
+_SAVE_CONV_OUTPUTS = functools.partial(
+    create_selective_checkpoint_contexts,
+    [torch.ops.uresnet_torch.halo_conv.default])
 
 
 class UResNetSparseTiled(nn.Module):
     """forward(coords (B,V,dim) int32, values (B,V) f32, n_voxels (B,)
-    int32) -> (logits (B, V, num_class) f32 in blob row order, diag), where
-    diag holds the graph's `overflow`, `tile_spill` and `vox_spill` counts."""
+    int32, train=False) -> (logits (B, V, num_class) f32 in blob row order,
+    diag), where diag holds the graph's `overflow`, `tile_spill` and
+    `vox_spill` counts."""
 
     def __init__(self, cfg: URESNetConfig,
                  generator: Optional[torch.Generator] = None):
@@ -172,10 +226,53 @@ class UResNetSparseTiled(nn.Module):
             else:
                 p.copy_(_conv_init(tuple(p.shape), generator))
 
-    @torch.no_grad()
-    def forward(self, coords, values, n_voxels):
+    def _enc_stage(self, x, l, level, mask, nxt_occ, link, t, t_next,
+                   train):
+        """Level l's blocks, then (below the bottom) BN and the stride-2
+        conv to level l+1. Returns (skip, next level's input)."""
         cfg = self.cfg
-        dim = cfg.data_dim
+        for r in range(cfg.reps):
+            x = getattr(self, f"enc{l}_block{r}")(x, level, mask, t, train)
+        if l == cfg.uresnet_num_strides - 1:
+            return x, x
+        y = _bn_flat(getattr(self, f"down{l}_bnact"), x, mask, train)
+        y = downsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link, t,
+                                  t_next, cfg.data_dim,
+                                  getattr(self, f"down{l}_w"))
+        return x, y * nxt_occ[..., None].to(y.dtype)
+
+    def _dec_stage(self, x, skip, l, level, mask, mask_up, link, t, t_up,
+                   train):
+        """BN and the transposed stride-2 conv from level l+1, then level
+        l's blocks on (up, skip): a pair in train, a concat in eval."""
+        cfg = self.cfg
+        y = _bn_flat(getattr(self, f"up{l}_bnact"), x, mask_up, train)
+        y = upsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link,
+                                level.occ, t, t_up, cfg.data_dim,
+                                getattr(self, f"up{l}_w"))
+        skip = skip.to(y.dtype)
+        y = (y, skip) if train else torch.cat([y, skip], dim=-1)
+        for r in range(cfg.reps):
+            y = getattr(self, f"dec{l}_block{r}")(y, level, mask, t, train)
+        return y
+
+    def _head_stage(self, x, mask, train):
+        y = _bn_flat(self.head_bnact, x, mask, train)
+        return torch.matmul(y.float(), self.head_w) + self.head_b
+
+    def _stage(self, fn, train: bool, level0: bool, *args):
+        """fn(*args), recomputed in backward as cfg.remat_mode says (train
+        with autograd on only; inference never recomputes)."""
+        mode = self.cfg.remat_mode
+        if not train or mode == "none" or not torch.is_grad_enabled():
+            return fn(*args)
+        if mode == "stage" or (mode == "stage_dots_deep" and level0):
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_SAVE_CONV_OUTPUTS)
+
+    def forward(self, coords, values, n_voxels, train: bool = False):
+        cfg = self.cfg
         dt = _DTYPES[cfg.compute_dtype]
         graph = build_tile_graph(coords, values, n_voxels, cfg)
         diag = {"overflow": graph_overflows(graph),
@@ -191,35 +288,26 @@ class UResNetSparseTiled(nn.Module):
 
         masks = [mask_of(lev) for lev in levels]
 
+        # eval fuses the stem's occupancy re-mask into its kernel epilogue
         x = self.stem(graph.feats0.to(dt), levels[0], tsz[0],
-                      _mask_epilogue(cfg.n_planes[0], masks[0],
-                                     coords.device))
+                      None if train else _mask_epilogue(
+                          cfg.n_planes[0], masks[0], coords.device))
         skips = []
         for l in range(nlev):
-            for r in range(cfg.reps):
-                x = getattr(self, f"enc{l}_block{r}")(
-                    x, levels[l], masks[l], tsz[l])
-            if l == nlev - 1:
-                break
-            skips.append(x)
-            y = _bn_flat(getattr(self, f"down{l}_bnact"), x, masks[l])
-            y = downsample_conv_tiled(y.to(dt), links[l], tsz[l], tsz[l + 1],
-                                      dim, getattr(self, f"down{l}_w"))
-            x = y * levels[l + 1].occ[..., None].to(y.dtype)
+            last = l == nlev - 1
+            skip, x = self._stage(
+                self._enc_stage, train, l == 0, x, l, levels[l], masks[l],
+                levels[l if last else l + 1].occ, None if last else links[l],
+                tsz[l], tsz[l if last else l + 1], train)
+            if not last:
+                skips.append(skip)
 
         for l in reversed(range(nlev - 1)):
-            y = _bn_flat(getattr(self, f"up{l}_bnact"), x, masks[l + 1])
-            y = upsample_conv_tiled(y.to(dt), links[l], levels[l].occ,
-                                    tsz[l], tsz[l + 1], dim,
-                                    getattr(self, f"up{l}_w"))
-            y = torch.cat([y, skips[l].to(y.dtype)], dim=-1)
-            for r in range(cfg.reps):
-                y = getattr(self, f"dec{l}_block{r}")(
-                    y, levels[l], masks[l], tsz[l])
-            x = y
-
-        y = _bn_flat(self.head_bnact, x, masks[0])
-        logits_tiles = torch.matmul(y.float(), self.head_w) + self.head_b
+            x = self._stage(self._dec_stage, train, l == 0, x, skips[l], l,
+                            levels[l], masks[l], masks[l + 1], links[l],
+                            tsz[l], tsz[l + 1], train)
+        logits_tiles = self._stage(self._head_stage, train, True, x,
+                                   masks[0], train)
 
         # back to blob row order; voxels of spilled tiles (vox_tile == T0)
         # index past the end and read the appended zero row
@@ -233,12 +321,28 @@ class UResNetSparseTiled(nn.Module):
         return torch.where(graph.input_valid[..., None], logits, 0.0), diag
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. Raises where CUDA is asked for and absent, rather than
+    dropping to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: pass device='cpu' to run the plain "
+            "torch versions of the kernels on the CPU")
+    return device
+
+
 @register_model("uresnet_sparse")
 def build_sparse(cfg: URESNetConfig,
-                 generator: Optional[torch.Generator] = None):
-    """The tile engine. The reference's row-gather engine is not ported."""
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda"):
+    """The tile engine on `device` (initialized on the CPU from
+    `generator`, then moved). The reference's row-gather engine is not
+    ported."""
     if cfg.sparse_engine != "tile":
         raise NotImplementedError(
             f"sparse_engine={cfg.sparse_engine!r}: only the tile engine is "
             "ported")
-    return UResNetSparseTiled(cfg, generator=generator)
+    device = resolve_device(device)
+    return UResNetSparseTiled(cfg, generator=generator).to(device)

@@ -4,10 +4,11 @@ All sources under `uresnet_pytorch_tpu_torch/csrc/*.cu` compile with nvcc
 into ONE shared library with a plain C interface, loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/torch_kernels/lib<sha>.so csrc/*.cu
+         -Xcompiler -fPIC -I csrc -o build/torch_kernels/lib<sha>.so csrc/*.cu
 
-`<sha>` hashes the sources and flags, so an edited kernel rebuilds and an
-unchanged one loads from the cache. Nothing is built or loaded at import:
+`<sha>` hashes the flags and every file under `csrc/`, the shared headers
+included, so an edited kernel or header rebuilds and an unchanged tree
+loads from the cache. Nothing is built or loaded at import:
 `library()` does both on the first kernel launch, so the package imports
 on a machine without nvcc. Every C entry point returns a `cudaError_t`
 (0 = success) that `check()` turns into an exception.
@@ -36,6 +37,7 @@ _SIGNATURES = {
     "halo_conv_raw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_conv_bn_act": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                          _I, _I, _I, _I, _I, _I, _P],
+    "halo_conv_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gather_rows": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
 }
 
@@ -43,13 +45,14 @@ _lib = None
 
 
 def sources() -> list:
+    """The translation units; headers under csrc/ reach them by -I."""
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
-        h.update(src.name.encode())
+    for src in sorted(p for p in CSRC.rglob("*") if p.is_file()):
+        h.update(str(src.relative_to(CSRC)).encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{h.hexdigest()[:16]}.so"
 
@@ -70,7 +73,8 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+           *map(str, sources())]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed ({res.returncode}):\n"

@@ -18,6 +18,16 @@ lane repack that feeds them. It reads plain (B, T, cells, C) rows
 through `idx`/`ok`, so no packed layout exists and one kernel serves
 every (t, Cin), Cin = 1 included. `halo_conv_plain` is the same function
 in plain torch: the exact halo extend then a VALID conv in f32.
+
+`halo_conv_op` is the raw conv as a torch operator with a gradient, the
+port of the reference's `fused_halo_conv` custom VJP (`_fhc_bwd`):
+`d_x = conv(g, flip_weights(w))` on the same halo maps (kernel B again;
+the adjoint of the stencil restricted to the live tiles is the flipped
+stencil on the same tiles) and `d_W` by kernel C (`halo_conv_dw`). That
+is the function of the TPU's combined backward `halo_conv_bwd` and of
+its fallback (`halo_conv_fwd` on flipped weights + `halo_conv_dw`). As a
+registered operator it is visible to selective checkpointing, which
+saves its outputs under `remat_mode="stage_dots"`.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from uresnet_pytorch_tpu_torch.ops import cuda
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import halo_conv_dw
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec, halo26_extend
 
 launches = 0   # kernel launches, for showing a run went through the kernel
@@ -128,3 +139,42 @@ def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
     cuda.check(err, "halo_conv")
     launches += 1
     return out
+
+
+def flip_weights(w: torch.Tensor) -> torch.Tensor:
+    """(3^d, Cin, Cout) -> (3^d, Cout, Cin): the adjoint stencil. Reversing
+    the lexicographic offset order negates every offset, and each offset's
+    (Cin, Cout) slice transposes."""
+    return w.flip(0).transpose(1, 2)
+
+
+@torch.library.custom_op("uresnet_torch::halo_conv", mutates_args=())
+def halo_conv_op(x: torch.Tensor, w: torch.Tensor, idx: torch.Tensor,
+                 ok: torch.Tensor, blive: torch.Tensor, t: int,
+                 dim: int) -> torch.Tensor:
+    """The raw conv `halo_conv(x, w, Halo26Spec(idx, ok, blive), t, dim)`
+    with a gradient (x and w contiguous, w in x's dtype)."""
+    return halo_conv(x, w, Halo26Spec(idx, ok, blive, None), t, dim)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, idx, ok, blive, t, dim = inputs
+    ctx.save_for_backward(x, w, idx, ok, blive)
+    ctx.geometry = (t, dim)
+
+
+def _backward(ctx, grad):
+    x, w, idx, ok, blive = ctx.saved_tensors
+    t, dim = ctx.geometry
+    halo = Halo26Spec(idx, ok, blive, None)
+    g = grad.contiguous()
+    d_x = d_w = None
+    if ctx.needs_input_grad[0]:
+        d_x = halo_conv(g, flip_weights(w).contiguous(), halo, t, dim)
+    if ctx.needs_input_grad[1]:
+        # in w's dtype, as the reference's `d_w.astype(w.dtype)`
+        d_w = halo_conv_dw(x, g, halo, t, dim).to(w.dtype)
+    return d_x, d_w, None, None, None, None, None
+
+
+halo_conv_op.register_autograd(_backward, setup_context=_setup_context)

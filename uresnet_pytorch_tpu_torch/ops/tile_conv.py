@@ -1,17 +1,20 @@
 """Tiled-dense sparse convolutions: halo'd submanifold convs, tile-link
 gathers and the space-to-depth fold of the stride-2 convs.
 
-Port of the inference path of `uresnet_pytorch_tpu/ops/tile_conv.py`. The
-two hot ops are the kernel wrappers of `ops/cuda/`, called by their names
-in this module: on a CPU tensor a wrapper runs its plain torch version, on
-a CUDA tensor the hand-written kernel. `chip_smoke.py` puts the plain
-versions in place of these two names to run the same model as reference
-on the card.
+Port of `uresnet_pytorch_tpu/ops/tile_conv.py`. The hot ops are the
+kernel wrappers of `ops/cuda/`: on a CPU tensor a wrapper runs its plain
+torch version, on a CUDA tensor the hand-written kernel. `chip_smoke.py`
+puts the plain versions in place of the wrappers to run the same model as
+reference on the card.
 
-Every submanifold conv runs fused: the reference declines its fused kernel
-for some (t, C) and falls back to conv + XLA epilogue (`tile_conv.py:
-292-302`); the Hopper kernel takes every shape, so there is no fallback.
-All ops keep the submanifold invariant: inactive cells hold exact zeros.
+Inference runs every submanifold conv fused with its epilogue: the
+reference declines its fused kernel for some (t, C) and falls back to conv
++ XLA epilogue (`tile_conv.py:292-302`); the Hopper kernel takes every
+shape, so there is no fallback. Training runs the raw conv through
+`halo_conv_op`, whose gradient is kernels B and C, and moves data between
+levels through the two link gathers, each the other's transpose, so the
+backward gathers too and never scatters. All ops keep the submanifold
+invariant: inactive cells hold exact zeros.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from typing import Tuple
 
 import torch
 
-from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import halo_conv
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (halo_conv,
+                                                          halo_conv_op)
 from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import windowed_gather
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
 from uresnet_pytorch_tpu_torch.ops.tile_graph import GatherSpec
@@ -81,8 +85,20 @@ def _corner_view(xc: torch.Tensor, tc: int, dim: int) -> torch.Tensor:
 def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
                            w) -> torch.Tensor:
     """x (B,T,t^dim,Cin), occ (B,T,t^dim) -> (B,T,t^dim,Cout), masked by
-    occupancy. Kernel B's raw entry point."""
-    out = halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t, dim)
+    occupancy, with a gradient (`halo_conv_op`).
+
+    x may be a pair (x1, x2) standing for their channel concat (the
+    decoder's skip): the conv is linear in Cin, so the pair runs as two
+    convs against the matching row slices of w, summed in f32 and rounded
+    once, with no (B, T, cells, C1 + C2) concat in memory."""
+    if isinstance(x, tuple):
+        x1, x2 = x
+        C1 = x1.shape[-1]
+        o1 = submanifold_conv_tiled(x1, occ, halo, t, dim, w[:, :C1])
+        o2 = submanifold_conv_tiled(x2, occ, halo, t, dim, w[:, C1:])
+        return (o1.float() + o2.float()).to(o1.dtype)
+    out = halo_conv_op(x.contiguous(), w.to(x.dtype).contiguous(), halo.idx,
+                       halo.ok, halo.blive, t, dim)
     return out * occ[..., None].to(out.dtype)
 
 
@@ -134,10 +150,42 @@ def _parent_corner_impl(xc: torch.Tensor, link, t_c: int,
 def assemble_children(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],
                       t_c: int, dim: int) -> torch.Tensor:
     """Per-fine-tile half-blocks (B, Tf, (t_c/2)^dim, C) -> coarse tiles
-    (B, Tc, t_c^dim, C); an identity link returns the blocks."""
+    (B, Tc, t_c^dim, C); an identity link returns the blocks. No gradient:
+    the graph build's occupancy."""
     if len(children) == 1:
         return blocks
     return _assemble_impl(blocks, children, t_c, dim)
+
+
+class _AssembleChildrenLink(torch.autograd.Function):
+    """`_assemble_impl` over a real link, whose transpose is the parent
+    gather: a down link is injective (every fine tile has one (parent,
+    octant)), so the adjoint of the children gather is the parent-corner
+    gather, and the backward never scatters."""
+
+    @staticmethod
+    def forward(ctx, blocks, link, t_c, dim):
+        ctx.link, ctx.t_c, ctx.dim = link, t_c, dim
+        return _assemble_impl(blocks, link.children, t_c, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_parent_corner_impl(g.contiguous(), ctx.link, ctx.t_c,
+                                    ctx.dim), None, None, None)
+
+
+class _ParentCornerLink(torch.autograd.Function):
+    """`_parent_corner_impl`, whose transpose is the children gather."""
+
+    @staticmethod
+    def forward(ctx, xc, link, t_c, dim):
+        ctx.link, ctx.t_c, ctx.dim = link, t_c, dim
+        return _parent_corner_impl(xc, link, t_c, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_assemble_impl(g.contiguous(), ctx.link.children, ctx.t_c,
+                               ctx.dim), None, None, None)
 
 
 def downsample_conv_tiled(x, link, t_f: int, t_c: int, dim: int,
@@ -153,7 +201,9 @@ def downsample_conv_tiled(x, link, t_f: int, t_c: int, dim: int,
     xf = fold2(xs).reshape(B, Tf, (t_f // 2) ** dim, 2 ** dim * Cin)
     wd = w.reshape(2 ** dim * Cin, Cout).to(dt)
     blocks = torch.matmul(xf.float(), wd.float()).to(dt)
-    return assemble_children(blocks, link.children, t_c, dim)
+    if len(link.children) == 1:
+        return blocks
+    return _AssembleChildrenLink.apply(blocks, link, t_c, dim)
 
 
 def upsample_conv_tiled(xc, link, occ_f, t_f: int, t_c: int, dim: int,
@@ -170,7 +220,7 @@ def upsample_conv_tiled(xc, link, occ_f, t_f: int, t_c: int, dim: int,
         B, Tf = xc.shape[:2]
         blocks = xc.reshape(B, Tf, th ** dim, Cin)
     else:
-        blocks = _parent_corner_impl(xc, link, t_c, dim)
+        blocks = _ParentCornerLink.apply(xc, link, t_c, dim)
         B, Tf = blocks.shape[:2]
     wu = w.permute(1, 0, 2).reshape(Cin, 2 ** dim * Cout).to(dt)
     outf = torch.matmul(blocks.float(), wu.float()).to(dt)

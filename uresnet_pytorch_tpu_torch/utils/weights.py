@@ -4,8 +4,9 @@
 dicts of arrays (numpy, or anything `np.asarray` accepts) and fills the
 port's parameters (`params` collection) and buffers (`batch_stats`) by
 dotted name, e.g. `params/enc0_block0/conv_a/w` -> `enc0_block0.conv_a.w`.
-`init_params(cfg, generator)` makes such a tree from the reference's
-initializers without JAX.
+`export_variables(module)` is the inverse: the module's state as such a
+tree of numpy arrays. `init_params(cfg, generator)` makes a tree from the
+reference's initializers without JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +69,18 @@ def _nest(flat: dict) -> dict:
     return tree
 
 
+def export_variables(module: nn.Module) -> dict:
+    """The module's parameters and buffers as a `{"params": ...,
+    "batch_stats": ...}` tree of f32 numpy arrays (copies, on the host)."""
+    def host(t):
+        return t.detach().float().cpu().numpy().copy()
+    return {
+        "params": _nest({n: host(p) for n, p in module.named_parameters()}),
+        "batch_stats": _nest({n: host(b)
+                              for n, b in module.named_buffers()}),
+    }
+
+
 def init_params(cfg: URESNetConfig, generator: torch.Generator) -> dict:
     """A fresh `{"params": ..., "batch_stats": ...}` tree of numpy arrays
     for the sparse U-ResNet at `cfg`, drawn from `generator` with the
@@ -75,10 +88,4 @@ def init_params(cfg: URESNetConfig, generator: torch.Generator) -> dict:
     the head, BN scale 1 / bias 0 / mean 0 / var 1)."""
     from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
         UResNetSparseTiled)
-    model = UResNetSparseTiled(cfg, generator=generator)
-    return {
-        "params": _nest({n: p.detach().numpy().copy()
-                         for n, p in model.named_parameters()}),
-        "batch_stats": _nest({n: b.numpy().copy()
-                              for n, b in model.named_buffers()}),
-    }
+    return export_variables(UResNetSparseTiled(cfg, generator=generator))
