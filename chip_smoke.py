@@ -22,7 +22,21 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    versions (loss, every gradient, the new BN moments), the kernel
    launches of one step, five steps on one batch (finite, falling
    losses), step time and events/s, and peak memory under "stage_dots"
-   and under "none".
+   and under "none";
+5. holds kernels D (the halo extend) and E (its transpose) against their
+   plain versions, bitwise, on config 3's real halo maps at every extend
+   shape of the unfused path (L0 with C = 1, 16 and 32, L2, L4, and L0 in
+   float32), and times them beside the bound and a one-call torch
+   yardstick (`index_select` / `index_add_` over a flat row map);
+6. drives config-3 inference with `ops.tile_conv.USE_FUSED = False` (the
+   unfused tile conv: kernel D, a cuDNN VALID conv, the epilogue in torch)
+   for three forwards against the fused kernel path from the same weights,
+   then one float32 forward on the auto path, which takes the unfused
+   conv on the card, against the plain f32 path;
+7. drives config-4 training with `USE_FUSED = False`: one step against
+   the fused kernel step (and each gradient against the plain f32 step's
+   bf16 noise), the launches of kernels D and E in one step, step time and
+   peak memory under "stage_dots" and "none".
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -118,16 +132,28 @@ def plain_versions():
     held against. The wrappers themselves never fall back."""
     from uresnet_pytorch_tpu_torch.ops import tile_conv
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he_mod
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import (
         halo_conv_dw_plain)
     from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
         windowed_gather_plain)
+    from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
+                                                    halo26_transpose)
     with mock.patch.object(tile_conv, "halo_conv", hc_mod.halo_conv_plain), \
             mock.patch.object(tile_conv, "windowed_gather",
                               windowed_gather_plain), \
             mock.patch.object(hc_mod, "halo_conv", hc_mod.halo_conv_plain), \
-            mock.patch.object(hc_mod, "halo_conv_dw", halo_conv_dw_plain):
+            mock.patch.object(hc_mod, "halo_conv_dw", halo_conv_dw_plain), \
+            mock.patch.object(he_mod, "halo26_fwd", halo26_extend), \
+            mock.patch.object(he_mod, "halo26_bwd", halo26_transpose):
         yield
+
+
+def fused(on: bool):
+    """The tile conv path: kernel B (True) or the unfused halo extend +
+    VALID conv (False), as `ops.tile_conv.USE_FUSED` selects it."""
+    from uresnet_pytorch_tpu_torch.ops import tile_conv
+    return mock.patch.object(tile_conv, "USE_FUSED", on)
 
 
 def time_ms(fn, iters: int = 5) -> float:
@@ -297,6 +323,97 @@ def check_dx(name, level, t, c, rng, device):
     return float(err.max())
 
 
+def row_map(halo, t, device):
+    """(B*T*(t+2)^3,) int64: for each extended cell, its source row in x
+    viewed as (B*T*t^3, C) with one zero row appended (index B*T*t^3):
+    the extend as one `index_select`, and its transpose as one
+    `index_add_`. Built from ops/halo.py's geometry, for the yardsticks
+    only."""
+    from uresnet_pytorch_tpu_torch.ops.halo import (body_cells, halo_offsets,
+                                                    slab_cells)
+    B, _, T = halo.idx.shape
+    cells = t ** 3
+    zero_row = B * T * cells
+    first = (torch.arange(B, device=device)[:, None] * T
+             + torch.arange(T, device=device)[None]) * cells      # (B, T)
+    rows = torch.full((B, T, (t + 2) ** 3), zero_row, dtype=torch.long,
+                      device=device)
+    rows[:, :, torch.as_tensor(body_cells(t, 3), device=device)] = \
+        first[..., None] + torch.arange(cells, device=device)
+    ev = torch.arange(B, device=device)[:, None] * T * cells
+    for k, off in enumerate(halo_offsets(3)):
+        ec, sc = (torch.as_tensor(v, device=device)
+                  for v in slab_cells(off, t))
+        src = (ev + halo.idx[:, k].long() * cells)[..., None] + sc
+        rows[:, :, ec] = torch.where(halo.ok[:, k, :, None], src, zero_row)
+    return rows.flatten()
+
+
+def same_bits(a, b) -> bool:
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
+    return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
+                                              b.view(ints[b.dtype]))
+
+
+def check_extend(name, level, t, c, dtype, gen, device):
+    """Kernels D and E against their plain versions on one level's real
+    halo maps, bitwise, on random rows everywhere (dead rows included).
+    Returns {d|e: (max_abs_err, kernel ms, plain ms, bound ms, bound by,
+    library ms)}."""
+    from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import (halo26_bwd,
+                                                                halo26_fwd)
+    from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
+                                                    halo26_transpose)
+    halo = level.halo
+    B, T = level.keys.shape
+    cells, ecells = t ** 3, (t + 2) ** 3
+    x = torch.randn(B, T, cells, c, generator=gen, device=device).to(dtype)
+    g = torch.randn(B, T, ecells, c, generator=gen, device=device).to(dtype)
+    rows = row_map(halo, t, device)
+    xpad = torch.cat([x.reshape(-1, c), x.new_zeros(1, c)])
+    # the extended cells that have a source row: all that E must read
+    has = (rows != xpad.shape[0] - 1).nonzero().squeeze(1)
+    out = {}
+    for key, kern, plain, a in (("d", halo26_fwd, halo26_extend, x),
+                                ("e", halo26_bwd, halo26_transpose, g)):
+        got, ref = kern(a, halo, t, 3), plain(a, halo, t, 3)
+        torch.cuda.synchronize()
+        same = same_bits(got, ref)
+        err = float((got.float() - ref.float()).abs().max())
+        print(f"{kern.__name__} {name}: {tuple(a.shape)} -> "
+              f"{tuple(got.shape)} {str(dtype)[6:]}, bitwise equal to plain: "
+              f"{same}")
+        require(same, f"{kern.__name__} {name} is not bitwise equal to plain")
+        if key == "d":
+            lib = torch.index_select(xpad, 0, rows).view(got.shape)
+            require(torch.equal(lib, got),
+                    f"the index_select yardstick at {name} is not the extend")
+            lib_fn = lambda: torch.index_select(xpad, 0, rows)  # noqa: E731
+        else:
+            # over the cells that have a source: the others carry zeros
+            # into the appended row, and ~1e8 atomic adds to that one row
+            # would time contention, not the transpose
+            acc = torch.zeros_like(xpad)
+            rows_e, g_e = rows[has], g.reshape(-1, c)[has]
+            lib_fn = lambda: acc.index_add_(0, rows_e, g_e)     # noqa: E731
+        ms = time_ms(lambda: kern(a, halo, t, 3))
+        plain_ms = time_ms(lambda: plain(a, halo, t, 3), iters=2)
+        library_ms = time_ms(lib_fn)
+        # each needed input byte read once, each output written once: D
+        # reads every row of x (the body cells), E only the extended cells
+        # whose neighbor exists; both read the maps
+        read = a.numel() if key == "d" else has.numel() * c
+        nbytes = (read + got.numel()) * a.element_size() \
+            + halo.idx.numel() * 4 + halo.ok.numel()
+        bound_ms, by = bound(0, nbytes)
+        print(f"{kern.__name__} {name}: kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, "
+              f"{'index_select' if key == 'd' else 'index_add_'} "
+              f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+        out[key] = (err, ms, plain_ms, bound_ms, by, library_ms)
+    return out
+
+
 def cos_rel(a, b):
     """(cosine, |a - b| / |b|) of two gradients."""
     a, b = a.flatten().double(), b.flatten().double()
@@ -334,16 +451,16 @@ def timed_steps(tv, blob, warm: int, timed: int):
     return losses, times, metrics
 
 
-def profile_step(tv, blob, top: int = 12) -> None:
-    """torch.profiler over one train step: device time by kernel, summed
-    by kind, and the device's busy share of the step's wall time. Only
+def profile_run(fn, what: str, top: int = 12) -> None:
+    """torch.profiler over one call of fn: device time by kernel, summed
+    by kind, and the device's busy share of the call's wall time. Only
     device-side rows count (an operator's row repeats its kernels' time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tv.train_step(blob)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
@@ -351,17 +468,23 @@ def profile_step(tv, blob, top: int = 12) -> None:
                    if e.device_type == DeviceType.CUDA
                    and e.self_device_time_total > 0), reverse=True)
     kinds = {"kernel B": 0.0, "kernel C": 0.0, "kernel A": 0.0,
+             "kernel D": 0.0, "kernel E": 0.0, "cuDNN convs": 0.0,
              "GEMMs": 0.0, "other torch kernels": 0.0}
     for ms, _, key in rows:
+        low = key.lower()
         kind = ("kernel C" if "halo_conv_dw_kernel" in key else
                 "kernel B" if "halo_conv_kernel" in key else
                 "kernel A" if "gather_rows_kernel" in key else
-                "GEMMs" if any(w in key.lower() for w in
-                               ("gemm", "xmma", "cutlass")) else
+                "kernel D" if "halo_extend_kernel" in key else
+                "kernel E" if "halo_transpose_kernel" in key else
+                "cuDNN convs" if any(w in low for w in
+                                     ("fprop", "dgrad", "wgrad", "conv"))
+                else "GEMMs" if any(w in low for w in
+                                    ("gemm", "xmma", "cutlass")) else
                 "other torch kernels")
         kinds[kind] += ms
     busy = sum(kinds.values())
-    print(f"profiled step: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
+    print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({busy / wall_ms:.1%}); by kind: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items()))
     for ms, n, key in rows[:top]:
@@ -373,24 +496,30 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
               "an NVIDIA GPU", file=sys.stderr)
         return 1
+    sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its lines
     from uresnet_pytorch_tpu_torch.models import construct
     from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg_mod
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
     from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                          load_jax_variables)
-    mods = {"halo_conv": hc_mod, "halo_conv_dw": dw_mod,
-            "windowed_gather": wg_mod}
+    # each kernel's launch counter: (module, attribute)
+    counters = {"halo_conv": (hc_mod, "launches"),
+                "halo_conv_dw": (dw_mod, "launches"),
+                "windowed_gather": (wg_mod, "launches"),
+                "halo26_fwd": (he_mod, "launches_fwd"),
+                "halo26_bwd": (he_mod, "launches_bwd")}
 
     def reset_counts():
-        for m in mods.values():
-            m.launches = 0
+        for m, attr in counters.values():
+            setattr(m, attr, 0)
 
     def counts():
-        return {k: m.launches for k, m in mods.items()}
+        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -629,7 +758,7 @@ def main() -> int:
           f"warm-ups: {', '.join(f'{t:.1f}' for t in times)} ms; median "
           f"{step_ms:.1f} ms = {BATCH4 / (step_ms / 1e3):.3f} events/s; "
           f"peak memory {peak_dots / 2**30:.2f} GiB (stage_dots)")
-    profile_step(tv, blob)
+    profile_run(lambda: tv.train_step(blob), "step")
     del tv
     torch.cuda.empty_cache()
 
@@ -641,8 +770,226 @@ def main() -> int:
     peak_none = torch.cuda.max_memory_allocated()
     print(f"remat_mode none: step {none_times[0]:.1f} ms, peak memory "
           f"{peak_none / 2**30:.2f} GiB")
-    profile_step(tv_none, blob, top=6)
+    profile_run(lambda: tv_none.train_step(blob), "step", top=6)
     del tv_none
+    torch.cuda.empty_cache()
+
+    # -- phase 5: kernels D and E against their plain versions -------------
+    print(f"phase 5 at {time.perf_counter() - t_start:.1f} s")
+    coords, values, nv = events(cfg, device)
+    with torch.no_grad():
+        graph = build_tile_graph(coords, values, nv, cfg)
+    lv = graph.levels
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # every extend shape of the unfused path: the stem (C = 1), L0 blocks,
+    # the decoder's L0 concat (C = 32, the largest extend: 1.6e9 values),
+    # t=2 blocks at L2 and L4, and L0 in float32 (the auto path's dtype)
+    ext_res = {}
+    with torch.no_grad():
+        for name, l, t, c, dt in (
+                ("L0 t=4 C=16", 0, 4, 16, torch.bfloat16),
+                ("stem L0 t=4 C=1", 0, 4, 1, torch.bfloat16),
+                ("dec concat L0 t=4 C=32", 0, 4, 32, torch.bfloat16),
+                ("L2 t=2 C=48", 2, 2, 48, torch.bfloat16),
+                ("L4 t=2 C=80", 4, 2, 80, torch.bfloat16),
+                ("L0 t=4 C=16 f32", 0, 4, 16, torch.float32)):
+            ext_res[name] = check_extend(name, lv[l], t, c, dt, gen, device)
+            torch.cuda.empty_cache()
+    del graph, lv
+
+    # -- phase 6: config-3 inference on the unfused tile conv --------------
+    print(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
+    variables3 = init_params(cfg, torch.Generator().manual_seed(SEED))
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, variables3)
+    valid = torch.arange(cfg.max_voxels, device=device)[None] < nv[:, None]
+    with torch.no_grad():
+        ref, _ = model(coords, values, nv)            # the fused kernel path
+        with fused(False):
+            model(coords, values, nv)                 # warm-up
+            torch.cuda.synchronize()
+            reset_counts()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                logits, diag = model(coords, values, nv)
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            unfused_launches = counts()
+            peak_unfused = torch.cuda.max_memory_allocated()
+            profile_run(lambda: model(coords, values, nv),
+                        "unfused config-3 forward", top=8)
+    print(f"launches in 3 unfused forwards: {unfused_launches}")
+    require(unfused_launches["halo26_fwd"] == 37 * 3,
+            f"expected 37 halo26_fwd launches per unfused forward, got "
+            f"{unfused_launches['halo26_fwd']} in 3")
+    require(unfused_launches["halo_conv"] == 0
+            and unfused_launches["halo_conv_dw"] == 0
+            and unfused_launches["halo26_bwd"] == 0,
+            "the unfused forward launched kernel B, C or E")
+    diag = {k: int(v) for k, v in diag.items()}
+    print(f"diag: {diag}")
+    require(diag["overflow"] == 0, "graph overflow")
+    require(tuple(logits.shape) == (BATCH, cfg.max_voxels, cfg.num_class)
+            and bool(torch.isfinite(logits).all())
+            and bool((logits[~valid] == 0).all()),
+            "unfused logits: wrong shape, non-finite or nonzero padding")
+    got, ref = logits[valid], ref[valid]
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).flatten()
+    q99 = float(torch.quantile(rel, 0.99))
+    q999 = float(torch.quantile(rel, 0.999))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"unfused vs fused kernel logits over {int(valid.sum())} voxels: "
+          f"p99 rel {q99:.3e}, p99.9 rel {q999:.3e}, max abs "
+          f"{float((got - ref).abs().max()):.3e}, argmax agreement "
+          f"{agree:.5f}")
+    require(q99 < 5e-2 and q999 < 0.15 and agree > 0.995,
+            "unfused logits disagree with the fused kernel path")
+    ms_unfused = sorted(times)[1]
+    print(f"unfused forward (graph build included), 3 runs: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
+          f"{ms_unfused:.1f} ms = {BATCH / (ms_unfused / 1e3):.2f} events/s; "
+          f"peak memory {peak_unfused / 2**30:.2f} GiB")
+    del model, logits, ref, got, rel
+    torch.cuda.empty_cache()
+
+    # float32 on the auto path: kernel B takes bf16 only, so the card runs
+    # f32 through the unfused conv; held against the plain f32 path of the
+    # fused conv (kernel B's plain version: no kernel D, no cuDNN NDHWC)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = construct("uresnet_sparse")(cfg32)
+    load_jax_variables(model, variables3)
+    with torch.no_grad():
+        reset_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out32, _ = model(coords, values, nv)
+        end.record()
+        torch.cuda.synchronize()
+        f32_launches = counts()
+        with plain_versions(), fused(True):
+            ref32, _ = model(coords, values, nv)
+        torch.cuda.synchronize()
+    print(f"launches in one f32 forward (auto): {f32_launches}, "
+          f"{start.elapsed_time(end):.1f} ms (first call)")
+    require(f32_launches["halo_conv"] == 0
+            and f32_launches["halo26_fwd"] == 37,
+            "the f32 forward did not take the unfused path")
+    require(bool(torch.isfinite(out32).all()), "non-finite f32 logits")
+    err32 = float((out32[valid] - ref32[valid]).abs().max())
+    scale32 = float(ref32[valid].abs().max())
+    print(f"f32 auto vs plain f32 logits: max|delta| {err32:.3e}, max|ref| "
+          f"{scale32:.3e}")
+    require(err32 <= 1e-4 * scale32, "f32 logits disagree with plain f32")
+    del model, out32, ref32, coords, values, nv, valid
+    torch.cuda.empty_cache()
+
+    # -- phase 7: config-4 training on the unfused tile conv ---------------
+    print(f"phase 7 at {time.perf_counter() - t_start:.1f} s")
+    def fresh(c):
+        tv_ = TrainVal(c)
+        tv_.initialize(variables)
+        return tv_
+
+    loss_k, grads_k, stats_k = grads_and_stats(fresh(cfg4), blob)
+    with fused(False):
+        loss_u, grads_u, stats_u = grads_and_stats(fresh(cfg4), blob)
+    with plain_versions(), fused(True):
+        _, grads_f, _ = grads_and_stats(
+            fresh(dataclasses.replace(cfg4, compute_dtype="float32")), blob)
+    torch.cuda.synchronize()
+    rel_loss = abs(loss_u - loss_k) / abs(loss_k)
+    print(f"unfused vs fused kernel train step: loss {loss_u:.6f} vs "
+          f"{loss_k:.6f} (rel {rel_loss:.3e})")
+    require(rel_loss <= 1e-2, "unfused and fused losses disagree")
+    names = sorted(grads_k)
+    flat = [torch.cat([g[n].flatten() for n in names])
+            for g in (grads_u, grads_k)]
+    g_cos, g_rel = cos_rel(flat[0], flat[1])
+    print(f"whole gradient, unfused vs fused kernels: cosine {g_cos:.6f}, "
+          f"|delta|/|ref| {g_rel:.3e}")
+    require(g_cos >= 0.99 and g_rel <= 5e-2,
+            "unfused gradient disagrees with the fused kernel path")
+    # per leaf: PR 2's rule, the fused kernel step K as the reference and
+    # the plain f32 step F as the measure of bf16's own noise
+    worst = []
+    for n in names:
+        u_cos, u_rel = cos_rel(grads_u[n], grads_k[n])
+        f_rel = cos_rel(grads_k[n], grads_f[n])[1]
+        worst.append((u_rel - 1.5 * f_rel, n, u_cos, u_rel, f_rel))
+        require(u_rel <= 1.5 * f_rel + 0.05,
+                f"gradient of {n}: unfused vs fused |delta|/|ref| "
+                f"{u_rel:.3e} beyond the bf16 noise (fused vs f32 "
+                f"{f_rel:.3e})")
+    for _, n, u_cos, u_rel, f_rel in sorted(worst, reverse=True)[:3]:
+        print(f"  closest to the bound: {n}: cosine {u_cos:.5f}, "
+              f"|delta|/|ref| {u_rel:.3e}; fused vs f32 {f_rel:.3e}")
+    worst_stat = 0.0
+    for n, sk in stats_k.items():
+        d = float(((stats_u[n] - sk).abs() / sk.abs().clamp(min=1.0)).max())
+        require(d <= 1e-2, f"unfused batch stat {n} differs by {d:.3e}")
+        worst_stat = max(worst_stat, d)
+    print(f"{len(names)} gradients within the bf16 noise; {len(stats_k)} "
+          f"running moments, worst rel {worst_stat:.3e}")
+    del grads_k, grads_u, grads_f, stats_k, stats_u, flat
+
+    with fused(False):
+        tv = fresh(cfg4)
+        torch.cuda.synchronize()
+        reset_counts()
+        losses, _, _ = timed_steps(tv, blob, 1, 0)
+        unfused_train = counts()
+        print(f"launches in one unfused stage_dots step: {unfused_train}")
+        require(unfused_train["halo26_fwd"] == 81,
+                f"expected 81 halo26_fwd launches per step (41 forward + 40 "
+                f"recomputed), got {unfused_train['halo26_fwd']}")
+        require(unfused_train["halo26_bwd"] == 40,
+                f"expected 40 halo26_bwd launches per step, got "
+                f"{unfused_train['halo26_bwd']}")
+        require(unfused_train["halo_conv"] == 0
+                and unfused_train["halo_conv_dw"] == 0,
+                "the unfused step launched kernel B or C")
+        require(unfused_train["windowed_gather"] > 0,
+                "no windowed_gather launch in the unfused step")
+        torch.cuda.reset_peak_memory_stats()
+        more, times, metrics = timed_steps(tv, blob, 1, 3)
+        peak_u_dots = torch.cuda.max_memory_allocated()
+        losses += more
+        print(f"unfused losses of 5 steps on one batch: "
+              f"{', '.join(f'{l:.6f}' for l in losses)}")
+        require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                "unfused training: non-finite loss, or it did not fall")
+        require(int(metrics["overflow"]) == 0, "graph overflow in training")
+        step_u = sorted(times)[1]
+        print(f"unfused train step, 3 runs after 2 warm-ups: "
+              f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
+              f"{step_u:.1f} ms = {BATCH4 / (step_u / 1e3):.3f} events/s; "
+              f"peak memory {peak_u_dots / 2**30:.2f} GiB (stage_dots)")
+        profile_run(lambda: tv.train_step(blob), "step")
+        del tv
+        torch.cuda.empty_cache()
+        tv = fresh(dataclasses.replace(cfg4, remat_mode="none"))
+        timed_steps(tv, blob, 1, 0)
+        torch.cuda.reset_peak_memory_stats()
+        _, none_times, _ = timed_steps(tv, blob, 0, 1)
+        peak_u_none = torch.cuda.max_memory_allocated()
+        print(f"unfused remat_mode none: step {none_times[0]:.1f} ms, peak "
+              f"memory {peak_u_none / 2**30:.2f} GiB")
+        del tv
+
+    paths = {"inference_3_forwards": infer_launches,
+             "training_step": train_launches,
+             "unfused_inference_3_forwards": unfused_launches,
+             "f32_inference_forward": f32_launches,
+             "unfused_training_step": unfused_train}
+
+    def by_path(name):
+        return {p: c[name] for p, c in paths.items()}
 
     dw0 = dw_res["L0 t=4 16->16"]
     kernels = [
@@ -654,9 +1001,7 @@ def main() -> int:
                            "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:287",
                            "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1259"],
          "launches": train_launches["halo_conv"],
-         "launches_by_path": {"inference_3_forwards":
-                              infer_launches["halo_conv"],
-                              "training_step": train_launches["halo_conv"]},
+         "launches_by_path": by_path("halo_conv"),
          "max_abs_err": max([r[0] for r in halo_res] + [dx_err]),
          "ms": halo_res[0][1], "plain_ms": halo_res[0][2],
          "bound_ms": halo_res[0][3], "bound_by": halo_res[0][4],
@@ -667,9 +1012,7 @@ def main() -> int:
          "also_replaces": ["uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1144",
                            "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1259"],
          "launches": train_launches["halo_conv_dw"],
-         "launches_by_path": {"inference_3_forwards":
-                              infer_launches["halo_conv_dw"],
-                              "training_step": train_launches["halo_conv_dw"]},
+         "launches_by_path": by_path("halo_conv_dw"),
          "max_abs_err": max(r[0] for r in dw_res.values()),
          "ms": dw0[1], "plain_ms": dw0[2], "bound_ms": dw0[3],
          "bound_by": dw0[4], "library_ms": None,
@@ -679,15 +1022,29 @@ def main() -> int:
          "replaces":
              "uresnet_pytorch_tpu/ops/pallas/windowed_gather.py:104",
          "launches": train_launches["windowed_gather"],
-         "launches_by_path": {"inference_3_forwards":
-                              infer_launches["windowed_gather"],
-                              "training_step":
-                              train_launches["windowed_gather"]},
+         "launches_by_path": by_path("windowed_gather"),
          "max_abs_err": max(r[0] for r in gather_res),
          "ms": gather_res[0][1], "plain_ms": gather_res[0][2],
          "bound_ms": gather_res[0][3], "bound_by": gather_res[0][4],
          "library_ms": gather_res[0][5]},
     ]
+    # kernels D and E: launches on their main path (the unfused step),
+    # times at config 3's L0 t=4 C=16 bf16, the other shapes beside
+    for name, key, line in (("halo26_fwd", "d", 455),
+                            ("halo26_bwd", "e", 515)):
+        r0 = ext_res["L0 t=4 C=16"][key]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "uresnet_pytorch_tpu_torch/csrc/halo_extend.cu",
+            "replaces": f"uresnet_pytorch_tpu/ops/pallas/halo_fused.py:{line}",
+            "launches": unfused_train[name],
+            "launches_by_path": by_path(name),
+            "max_abs_err": max(r[key][0] for r in ext_res.values()),
+            "ms": r0[1], "plain_ms": r0[2], "bound_ms": r0[3],
+            "bound_by": r0[4], "library_ms": r0[5],
+            "by_shape": {k: {"ms": r[key][1], "plain_ms": r[key][2],
+                             "bound_ms": r[key][3], "library_ms": r[key][5]}
+                         for k, r in ext_res.items()}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,192 @@
+"""The port's standalone halo extend and its transpose (plain torch
+versions of kernels D and E, uresnet_pytorch_tpu_torch/ops/halo.py and
+ops/cuda/halo_extend.py) against the JAX reference.
+
+Specs come from the same sorted keys through both packages' build_halo26,
+inputs from a numpy seed (B=2, T=64). The port's plain transpose equals
+`halo26_transpose_xla` bitwise in f32 and within 1 bf16 ulp (of the summed
+terms) in bf16. Both plain functions are held to the reference's Pallas
+kernels `halo26_fwd` / `halo26_bwd` in interpret mode, as
+tests/test_halo_kernel.py runs them (bf16 forward bitwise, f32 forward at
+atol 1e-5, backward within 1 bf16 ulp), one case on a spec whose tiny
+windows force the reference's correction path. The operator's gradient is
+held to `jax.vjp` of the reference's custom-VJP `halo26_extend`. The CUDA
+kernels themselves are checked against these plain versions, bitwise, on
+the card by chip_smoke.py."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_halo26 import _random_level, _zero_dead
+from uresnet_pytorch_tpu.ops import halo as jhalo
+from uresnet_pytorch_tpu.ops.pallas.halo_fused import (halo26_bwd as
+                                                       j_halo26_bwd)
+from uresnet_pytorch_tpu.ops.pallas.halo_fused import (halo26_fwd as
+                                                       j_halo26_fwd)
+from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
+from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, build_halo26,
+                                                halo26_extend,
+                                                halo26_transpose)
+
+B, T = 2, 64
+_GRID = {2: 16, 3: 8}
+
+
+def _case(dim, seed, live=40, **kw):
+    """keys (B, T) with `live` tiles per event, the reference's and the
+    port's specs of them."""
+    rng = np.random.default_rng(seed)
+    G = _GRID[dim]
+    keys = np.stack([np.asarray(_random_level(rng, G, dim, T, live)[0])
+                     for _ in range(B)])
+    jspec = jax.vmap(lambda k: jhalo.build_halo26(k, G, dim, **kw))(
+        jnp.asarray(keys))
+    return rng, keys, jspec, build_halo26(torch.from_numpy(keys), G, dim)
+
+
+def _bf16_ulp(v):
+    """One bf16 ulp at |v| (8 significand bits)."""
+    a = np.maximum(np.abs(v), np.finfo(np.float32).tiny)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def _within_ulp(out, ref, g, spec, t, dim):
+    """|out - ref| <= one bf16 ulp of the summed magnitudes of the terms
+    (the transpose of |g|): where the sum cancels, a different order of
+    rounded adds moves it by an ulp of its terms, not of the result."""
+    scale = halo26_transpose(torch.from_numpy(np.abs(g)), spec, t,
+                             dim).numpy()
+    assert (np.abs(out - ref) <= _bf16_ulp(scale)).all()
+
+
+def _bf16(v):
+    """v rounded to bf16, as f32."""
+    return torch.from_numpy(v).bfloat16().float().numpy()
+
+
+SHAPES = [(dim, t, C) for dim in (2, 3) for t in (2, 4) for C in (1, 3, 16)]
+
+
+@pytest.mark.parametrize("dim,t,C", SHAPES)
+def test_plain_transpose_matches_xla(dim, t, C):
+    rng, _, jspec, spec = _case(dim, seed=10 * dim + t + C)
+    g = rng.normal(size=(B, T, (t + 2) ** dim, C)).astype(np.float32)
+    ref = np.asarray(jhalo.halo26_transpose_xla(jnp.asarray(g), jspec, t,
+                                                dim))
+    out = halo26_transpose(torch.from_numpy(g), spec, t, dim)
+    assert out.dtype == torch.float32 and out.shape == (B, T, t ** dim, C)
+    np.testing.assert_array_equal(out.numpy(), ref)
+    refb = np.asarray(jhalo.halo26_transpose_xla(
+        jnp.asarray(g).astype(jnp.bfloat16), jspec, t, dim)
+        .astype(jnp.float32))
+    outb = halo26_transpose(torch.from_numpy(g).bfloat16(), spec, t, dim)
+    assert outb.dtype == torch.bfloat16
+    _within_ulp(outb.float().numpy(), refb, _bf16(g), spec, t, dim)
+
+
+PALLAS = [  # dim, t, C, build_halo26 kwargs
+    pytest.param(3, 4, 16, {}, id="t4-c16"),
+    pytest.param(3, 2, 3, {}, id="t2-c3"),
+    pytest.param(3, 4, 3, dict(block=8, win_mult=1), id="t4-c3-corrections"),
+]
+
+
+@pytest.mark.parametrize("dim,t,C,kw", PALLAS)
+def test_plain_matches_pallas_interpret(dim, t, C, kw):
+    rng, keys, jspec, spec = _case(dim, seed=t + C, live=48, **kw)
+    if kw:
+        # the reference's windows miss neighbors: its correction list runs
+        assert int(np.asarray(jspec.corr_ok).sum()) > 0
+        assert int(np.asarray(jspec.overflow).sum()) == 0
+    # dead rows zero, the production invariant the reference's liveness
+    # gate relies on (tests/test_halo_kernel.py)
+    x = np.asarray(_zero_dead(jnp.asarray(rng.normal(
+        size=(B, T, t ** dim, C)).astype(np.float32)), keys))
+    g = np.asarray(_zero_dead(jnp.asarray(rng.normal(
+        size=(B, T, (t + 2) ** dim, C)).astype(np.float32)), keys))
+    ref = j_halo26_fwd(jnp.asarray(x).astype(jnp.bfloat16), jspec, t, dim,
+                       interpret=True)
+    out = halo26_extend(torch.from_numpy(x).bfloat16(), spec, t, dim)
+    np.testing.assert_array_equal(out.float().numpy(),
+                                  np.asarray(ref.astype(jnp.float32)))
+    ref = j_halo26_fwd(jnp.asarray(x), jspec, t, dim, interpret=True)
+    np.testing.assert_allclose(
+        halo26_extend(torch.from_numpy(x), spec, t, dim).numpy(),
+        np.asarray(ref), atol=1e-5, rtol=0)
+    ref = j_halo26_bwd(jnp.asarray(g).astype(jnp.bfloat16), jspec, t, dim,
+                       interpret=True)
+    out = halo26_transpose(torch.from_numpy(g).bfloat16(), spec, t, dim)
+    _within_ulp(out.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                _bf16(g), spec, t, dim)
+
+
+@pytest.mark.parametrize("dim,t", [(2, 4), (3, 2), (3, 4)])
+def test_transpose_is_the_adjoint(dim, t):
+    """<D x, g> = <x, E g> in float64, dead rows included."""
+    rng, _, _, spec = _case(dim, seed=7 + t)
+    x = rng.normal(size=(B, T, t ** dim, 5))
+    g = rng.normal(size=(B, T, (t + 2) ** dim, 5))
+    lhs = float((halo26_extend(torch.from_numpy(x), spec, t, dim).numpy()
+                 * g).sum())
+    rhs = float((x * halo26_transpose(torch.from_numpy(g), spec, t,
+                                      dim).numpy()).sum())
+    assert abs(lhs - rhs) <= 1e-12 * abs(lhs)
+
+
+@pytest.mark.parametrize("dim,t,C", [(3, 4, 3), (2, 2, 1)])
+def test_extend_op_gradient_matches_jax_vjp(dim, t, C):
+    """`halo26_extend_op` and its registered gradient (the transpose)
+    against the reference's custom-VJP `halo26_extend`, f32."""
+    rng, _, jspec, spec = _case(dim, seed=3 + C)
+    x = rng.normal(size=(B, T, t ** dim, C)).astype(np.float32)
+    ct = rng.normal(size=(B, T, (t + 2) ** dim, C)).astype(np.float32)
+    ref, vjp = jax.vjp(lambda v: jhalo.halo26_extend(v, jspec, t, dim),
+                       jnp.asarray(x))
+    (ref_dx,) = vjp(jnp.asarray(ct))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = he.halo26_extend_op(xt, spec.idx, spec.ok, t, dim)
+    out.backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(ref_dx),
+                               rtol=1e-6, atol=1e-6)
+    # an input that needs no gradient (the stem's) leaves no backward
+    assert not he.halo26_extend_op(torch.from_numpy(x), spec.idx, spec.ok,
+                                   t, dim).requires_grad
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that reports a CUDA device: reaches the wrappers'
+    checks without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("wrapper", [he.halo26_fwd, he.halo26_bwd])
+def test_wrappers_refuse_bad_inputs(wrapper):
+    """A tensor off the CPU goes to the kernel, which refuses a device mix,
+    wrong shapes and types, and tile sizes it has no tables for; no case
+    falls back to the plain version."""
+    _, _, _, spec = _case(3, seed=1)
+    t = 4
+    cells = t ** 3 if wrapper is he.halo26_fwd else (t + 2) ** 3
+    card = torch.zeros(B, T, cells, 8).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="idx must be contiguous on cuda"):
+        wrapper(card, spec, t, 3)                        # maps on the CPU
+    idx, ok = spec.idx.as_subclass(_OnCard), spec.ok.as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="does not fit"):
+        wrapper(card, Halo26Spec(idx, ok, None, None), 2, 3)   # cells vs t
+    with pytest.raises(ValueError, match="does not fit"):
+        wrapper(torch.zeros(B, T, 3 ** 3, 8).as_subclass(_OnCard),
+                Halo26Spec(idx, ok, None, None), 3, 3)   # no table for t=3
+    with pytest.raises(ValueError, match="idx is"):
+        wrapper(card, Halo26Spec(idx[:, 1:], ok, None, None), t, 3)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        wrapper(card.half(), Halo26Spec(idx, ok, None, None), t, 3)
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        wrapper(torch.zeros(B, T, cells, 8, device="meta"), spec, t, 3)

@@ -4,11 +4,11 @@ uresnet_pytorch_tpu_torch's UResNetSparseTiled and the reference's, on the
 CPU, where the port runs the plain torch versions of its kernels.
 
 f32 logits agree to rtol = atol = 1e-4 (the cross-engine bound of
-tests/test_tile_engine.py); the port's bf16 run must agree with them on the
-class of nearly every voxel. A subprocess pins that the port imports
-neither jax, flax nor the reference package and builds no CUDA kernel when
-it runs on CPU tensors; a scan of the sources pins the same for
-chip_smoke.py, which runs where there is no JAX."""
+tests/test_tile_engine.py), on either tile conv path; the port's bf16 run
+must agree with them on the class of nearly every voxel. A subprocess pins
+that the port imports neither jax, flax nor the reference package and
+builds no CUDA kernel when it runs on CPU tensors; a scan of the sources
+pins the same for chip_smoke.py, which runs where there is no JAX."""
 
 import ast
 import pathlib
@@ -25,6 +25,7 @@ from uresnet_pytorch_tpu.iotools.synthetic import generate_event
 from uresnet_pytorch_tpu.models import construct as j_construct
 from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.models import construct
+from uresnet_pytorch_tpu_torch.ops import tile_conv
 from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                      load_jax_variables)
 
@@ -97,7 +98,11 @@ def f32_reference():
     return variables, args, ref
 
 
-def test_slice_f32_matches_reference(f32_reference):
+@pytest.mark.parametrize("use_fused", [None, False])
+def test_slice_f32_matches_reference(f32_reference, monkeypatch, use_fused):
+    """Auto (kernel B's plain version on the CPU) and the unfused tile conv
+    (kernel D's plain extend, a VALID conv, the epilogue in torch)."""
+    monkeypatch.setattr(tile_conv, "USE_FUSED", use_fused)
     variables, args, ref = f32_reference
     out = _port(_tcfg("float32"), variables, args)
     assert out.dtype == np.float32 and out.shape == ref.shape

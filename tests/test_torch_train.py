@@ -5,11 +5,12 @@ One train step from the same variables and batch: the reference side is
 `jax.value_and_grad` of its `TrainVal._loss_fn` on one CPU device, the port
 side `TrainVal` with `device="cpu"`. In f32 the loss agrees to rtol 1e-5,
 every gradient to rtol 1e-4 with atol 1e-4 * max|ref|, and the new BN
-running moments to 1e-5. In bf16 the loss agrees to 1e-2 and the whole
-gradient's cosine to the reference's is at least 0.99 (per leaf, see
-test_bf16_step_matches_reference). Adam is held to optax.adam on identical
-gradients, the four remat modes to each other, and the counts of conv
-calls per step to the formula chip_smoke.py asserts on the card. Port
+running moments to 1e-5, on either tile conv path. In bf16 the loss agrees
+to 1e-2 and the whole gradient's cosine to the reference's is at least
+0.99 (per leaf, see test_bf16_step_matches_reference). Adam is held to
+optax.adam on identical gradients, the four remat modes to each other, and
+the counts of conv calls per step (both paths) to the formulas
+chip_smoke.py asserts on the card. Port
 counterparts of tests/test_tile_engine.py's training tests close the
 file."""
 
@@ -29,7 +30,9 @@ from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.iotools.synthetic import generate_event
 from uresnet_pytorch_tpu_torch.models import construct
 from uresnet_pytorch_tpu_torch.models.norm import commit_batch_moments
+from uresnet_pytorch_tpu_torch.ops import tile_conv
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
+from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
 from uresnet_pytorch_tpu_torch.trainval import TrainVal, adam
 from uresnet_pytorch_tpu_torch.utils.weights import (export_variables,
                                                      init_params)
@@ -118,7 +121,11 @@ def f32_case():
     return variables, blob, _reference_step("float32", variables, blob)
 
 
-def test_f32_step_matches_reference(f32_case):
+@pytest.mark.parametrize("use_fused", [None, False])
+def test_f32_step_matches_reference(f32_case, monkeypatch, use_fused):
+    """Auto (kernels B and C's plain versions on the CPU) and the unfused
+    tile conv (kernels D and E's plain versions around a VALID conv)."""
+    monkeypatch.setattr(tile_conv, "USE_FUSED", use_fused)
     variables, blob, (ref_loss, ref_grads, ref_stats) = f32_case
     loss, grads, stats = _port_step("float32", variables, blob)
     np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
@@ -194,6 +201,35 @@ def test_conv_calls_per_step(f32_case, mode, forward_convs):
         tv.train_step(blob)
     assert conv.call_count == forward_convs + 12
     assert dw.call_count == 13
+
+
+@pytest.mark.parametrize("mode,extends", [
+    ("none", 13),           # one extend per forward conv
+    ("stage_dots", 25),     # the conv outputs are saved, the extends not:
+    #                         all but the stem's 13 - 1 run again
+])
+def test_unfused_calls_per_step(f32_case, monkeypatch, mode, extends):
+    """With USE_FUSED=False every conv is an extend and a VALID conv: 13
+    forward extends, recomputed under stage_dots as in the reference, 12
+    transposes (the stem's input needs none) and no call of kernel B or C.
+    chip_smoke.py asserts the same formula at config 4 (81 D, 40 E)."""
+    monkeypatch.setattr(tile_conv, "USE_FUSED", False)
+    variables, blob, _ = f32_case
+    tv = TrainVal(TConfig(compute_dtype="float32", remat_mode=mode, **_KW),
+                  device="cpu")
+    tv.initialize(variables)
+    with mock.patch.object(he, "halo26_fwd",
+                           side_effect=he.halo26_fwd) as fwd, \
+            mock.patch.object(he, "halo26_bwd",
+                              side_effect=he.halo26_bwd) as bwd, \
+            mock.patch.object(hc, "halo_conv",
+                              side_effect=hc.halo_conv) as conv, \
+            mock.patch.object(hc, "halo_conv_dw",
+                              side_effect=hc.halo_conv_dw) as dw:
+        metrics = tv.train_step(blob)
+    assert np.isfinite(float(metrics["loss"]))
+    assert (fwd.call_count, bwd.call_count) == (extends, 12)
+    assert (conv.call_count, dw.call_count) == (0, 0)
 
 
 def test_adam_matches_optax():
@@ -306,5 +342,5 @@ def test_entry_points_default_to_the_card(monkeypatch):
 
 def test_checkpoints_are_not_ported_yet():
     cfg = _engine_cfg(model_path="weights/snapshot-*.ckpt")
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="come with the port's CLI"):
         TrainVal(cfg, device="cpu").initialize()

@@ -14,14 +14,17 @@ off (`torch.no_grad()`).
 
 Train (`train=True`): every BN takes batch moments over the active cells
 (recorded, then applied by `norm.commit_batch_moments` after the step),
-every submanifold conv is the raw `halo_conv_op` times occupancy, and the
+every submanifold conv is the raw conv times occupancy, and the
 decoder hands its first block the unmaterialized (upsampled, skip) pair.
 `cfg.remat_mode` recomputes stages in backward with
 `torch.utils.checkpoint` at the reference's boundaries (each encoder
 stage, each decoder stage, the head; the stem stays outside): "stage"
-recomputes everything, "stage_dots" saves the halo-conv outputs and
+recomputes everything, "stage_dots" saves the conv outputs and
 recomputes the rest, "stage_dots_deep" does that except at level 0, which
 recomputes everything, and "none" saves everything.
+
+Both modes take the conv path `ops.tile_conv.USE_FUSED` selects: kernel B
+(`halo_conv_op` in train), or the halo extend and a VALID conv.
 """
 
 from __future__ import annotations
@@ -170,11 +173,14 @@ class SparseResBlockTile(nn.Module):
         return shortcut + y
 
 
-# stage_dots: keep the halo-conv outputs, recompute everything else (the
-# operator is registered by ops/cuda/halo_conv.py, which tile_conv imports)
+# stage_dots: keep the conv outputs, recompute everything else: kernel B's
+# operator (registered by ops/cuda/halo_conv.py, which tile_conv imports) on
+# the fused path, the VALID conv after the halo extend on the unfused one,
+# whose extends are then recomputed in backward, as in the reference
 _SAVE_CONV_OUTPUTS = functools.partial(
     create_selective_checkpoint_contexts,
-    [torch.ops.uresnet_torch.halo_conv.default])
+    [torch.ops.uresnet_torch.halo_conv.default,
+     torch.ops.aten.convolution.default])
 
 
 class UResNetSparseTiled(nn.Module):

@@ -39,6 +39,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _P],
     "halo_conv_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gather_rows": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
+    "halo_extend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "halo_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

@@ -2,13 +2,14 @@
 
 Port of `uresnet_pytorch_tpu/ops/halo.py`: the static slab geometry
 (`halo_offsets`, `slab_cells`, `body_cells`), the neighbor maps of
-`build_halo26` and the exact extend `halo26_extend_xla`.
+`build_halo26`, the exact extend `halo26_extend_xla` and its transpose
+`halo26_transpose_xla`, in plain torch.
 
 Only the neighbor maps come across. The reference's windows, rebases,
 lidx/hasp and correction lists plan one-hot gathers on the TPU; the
-Hopper kernel (`ops/cuda/halo_conv.py`) reads neighbor rows directly
-through `idx`/`ok`. With no correction budget nothing can be dropped, so
-`overflow` is 0 by construction.
+Hopper kernels (`ops/cuda/halo_conv.py`, `ops/cuda/halo_extend.py`) read
+neighbor rows directly through `idx`/`ok`. With no correction budget
+nothing can be dropped, so `overflow` is 0 by construction.
 """
 
 from __future__ import annotations
@@ -119,3 +120,27 @@ def halo26_extend(x: torch.Tensor, spec: Halo26Spec, t: int,
         slab = xp[:, :, torch.as_tensor(scells, device=dev)][bidx, rows]
         ext[:, :, torch.as_tensor(ecells, device=dev)] = slab
     return ext
+
+
+def halo26_transpose(g: torch.Tensor, spec: Halo26Spec, t: int,
+                     dim: int) -> torch.Tensor:
+    """Exact transpose of `halo26_extend`: (B, T, (t+2)^dim, C) cotangent
+    -> (B, T, t^dim, C).
+
+    Port of `halo26_transpose_xla`: the body cells, then per offset k in
+    order the slab-k cotangent of the tile's -delta_k neighbor (row
+    idx[K-1-k]), added in g's dtype."""
+    B, T, ecells, C = g.shape
+    K = 3 ** dim - 1
+    dev = g.device
+    d_x = g[:, :, torch.as_tensor(body_cells(t, dim), device=dev)]
+    gp = torch.cat([g, g.new_zeros(B, 1, ecells, C)], 1)
+    bidx = torch.arange(B, device=dev)[:, None]
+    for k, off in enumerate(halo_offsets(dim)):
+        ecells_k, scells = slab_cells(off, t)
+        rows = torch.where(spec.ok[:, K - 1 - k], spec.idx[:, K - 1 - k],
+                           T).long()
+        slab = gp[:, :, torch.as_tensor(ecells_k, device=dev)][bidx, rows]
+        sc = torch.as_tensor(scells, device=dev)
+        d_x[:, :, sc] = d_x[:, :, sc] + slab
+    return d_x

@@ -7,11 +7,14 @@ torch version, on a CUDA tensor the hand-written kernel. `chip_smoke.py`
 puts the plain versions in place of the wrappers to run the same model as
 reference on the card.
 
-Inference runs every submanifold conv fused with its epilogue: the
-reference declines its fused kernel for some (t, C) and falls back to conv
-+ XLA epilogue (`tile_conv.py:292-302`); the Hopper kernel takes every
-shape, so there is no fallback. Training runs the raw conv through
-`halo_conv_op`, whose gradient is kernels B and C, and moves data between
+Two conv paths, chosen by `USE_FUSED` as the reference chooses them
+(`tile_conv.py:194-255`). Fused: inference runs every submanifold conv with
+its epilogue in kernel B (the reference declines its fused kernel for some
+(t, C) and falls back to conv + XLA epilogue, `tile_conv.py:292-302`; the
+Hopper kernel takes every shape, so there is no fallback), and training
+runs the raw conv through `halo_conv_op`, whose gradient is kernels B and
+C. Unfused: the halo extend (kernel D, gradient kernel E), one VALID conv
+over the extended tiles, and the epilogue in torch. Data moves between
 levels through the two link gathers, each the other's transpose, so the
 backward gathers too and never scatters. All ops keep the submanifold
 invariant: inactive cells hold exact zeros.
@@ -19,12 +22,15 @@ invariant: inactive cells hold exact zeros.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (halo_conv,
                                                           halo_conv_op)
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import halo26_extend_op
 from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import windowed_gather
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
 from uresnet_pytorch_tpu_torch.ops.tile_graph import GatherSpec
@@ -82,10 +88,51 @@ def _corner_view(xc: torch.Tensor, tc: int, dim: int) -> torch.Tensor:
 # convolutions
 # ---------------------------------------------------------------------------
 
+# None = auto: kernel B (the fused conv) except for float32 on the card,
+# which kernel B does not take and which takes the unfused path (the
+# reference's dtype rule: f32 keeps its exact halo + conv path). On the CPU
+# auto runs kernel B's plain version for every dtype. Tests and
+# chip_smoke.py force a path by setting this.
+USE_FUSED = None
+
+
+def _fused(x: torch.Tensor) -> bool:
+    if USE_FUSED is not None:
+        return USE_FUSED
+    return x.device.type != "cuda" or x.dtype == torch.bfloat16
+
+
+def _valid_conv(ext: torch.Tensor, w, t: int, dim: int) -> torch.Tensor:
+    """One 3^dim VALID conv over halo-extended tiles (B, T, (t+2)^dim, Cin)
+    -> (B, T, t^dim, Cout), in ext's dtype with f32 sums: the reference's
+    `lax.conv_general_dilated` (`tile_conv.py:251`), here a torch conv on a
+    channels-last view. In float32 it runs without TF32, as the reference's
+    f32 conv; the flag is set around this call only, so a backward through
+    it follows the caller's setting."""
+    B, T, _, Cin = ext.shape
+    Cout = w.shape[-1]
+    xin = ext.reshape((B * T,) + (t + 2,) * dim + (Cin,)).movedim(-1, 1)
+    fmt = torch.channels_last_3d if dim == 3 else torch.channels_last
+    kern = w.to(ext.dtype).reshape((3,) * dim + (Cin, Cout)).permute(
+        (dim + 1, dim) + tuple(range(dim))).contiguous(memory_format=fmt)
+    conv = F.conv3d if dim == 3 else F.conv2d
+    cudnn = torch.backends.cudnn
+    ctx = cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                      deterministic=cudnn.deterministic, allow_tf32=False) \
+        if ext.dtype == torch.float32 else contextlib.nullcontext()
+    with ctx:
+        y = conv(xin, kern)
+    return y.movedim(1, -1).reshape(B, T, t ** dim, Cout)
+
+
 def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
                            w) -> torch.Tensor:
     """x (B,T,t^dim,Cin), occ (B,T,t^dim) -> (B,T,t^dim,Cout), masked by
-    occupancy, with a gradient (`halo_conv_op`).
+    occupancy, with a gradient.
+
+    Fused (`USE_FUSED`): `halo_conv_op`, kernel B with kernels B and C as
+    its gradient. Unfused: the halo-extended tiles (`halo26_extend_op`,
+    kernel D, whose gradient is kernel E), then one VALID conv over them.
 
     x may be a pair (x1, x2) standing for their channel concat (the
     decoder's skip): the conv is linear in Cin, so the pair runs as two
@@ -97,20 +144,33 @@ def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
         o1 = submanifold_conv_tiled(x1, occ, halo, t, dim, w[:, :C1])
         o2 = submanifold_conv_tiled(x2, occ, halo, t, dim, w[:, C1:])
         return (o1.float() + o2.float()).to(o1.dtype)
-    out = halo_conv_op(x.contiguous(), w.to(x.dtype).contiguous(), halo.idx,
-                       halo.ok, halo.blive, t, dim)
+    if _fused(x):
+        out = halo_conv_op(x.contiguous(), w.to(x.dtype).contiguous(),
+                           halo.idx, halo.ok, halo.blive, t, dim)
+    else:
+        ext = halo26_extend_op(x.contiguous(), halo.idx, halo.ok, t, dim)
+        out = _valid_conv(ext, w, t, dim)
     return out * occ[..., None].to(out.dtype)
 
 
 def submanifold_conv_bn_act_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
                                   w, a, b, alpha: float, mask) -> torch.Tensor:
-    """Inference fusion: mask * leaky_alpha(conv(x) * a + b) in one kernel.
-    An identity affine (a=1, b=0, alpha=1) gives conv + occupancy mask.
-    `occ` is unused (the mask carries it); kept for the reference's
-    signature."""
-    return halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t, dim,
-                     a=a.float().contiguous(), b=b.float().contiguous(),
-                     alpha=alpha, mask=mask.contiguous())
+    """Inference: mask * leaky_alpha(conv(x) * a + b). An identity affine
+    (a=1, b=0, alpha=1) gives conv + occupancy mask.
+
+    Fused: one kernel (B with its epilogue); `occ` is unused there (the
+    mask carries it). Unfused: `submanifold_conv_tiled`, then the
+    reference's epilogue (`tile_conv.py:299-302`) in the conv's dtype."""
+    if _fused(x):
+        return halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t,
+                         dim, a=a.float().contiguous(),
+                         b=b.float().contiguous(), alpha=alpha,
+                         mask=mask.contiguous())
+    y = submanifold_conv_tiled(x, occ, halo, t, dim, w)
+    z = y * a.to(y.dtype) + b.to(y.dtype)
+    # alpha in the conv's dtype, as the reference's asarray(alpha, z.dtype)
+    z = torch.where(z >= 0, z, z.new_tensor(alpha) * z)
+    return z * mask[..., None].to(z.dtype)
 
 
 def _assemble_impl(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],

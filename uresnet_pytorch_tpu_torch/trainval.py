@@ -12,7 +12,7 @@ device.
 Adam equals the reference's `optax.adam(learning_rate)`: b1 0.9, b2 0.999,
 eps 1e-8 added to the bias-corrected root, no eps inside the root. The
 gradient allreduce over several cards and checkpoints come with the
-port's CLI (slice 3).
+port's CLI (ROADMAP, queue 1).
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                      load_jax_variables)
 
 _NOT_PORTED = ("checkpoints are not ported yet: they come with the port's "
-               "CLI in slice 3")
+               "CLI (ROADMAP, queue 1)")
 
 
 def _batch_from_blob(blob: Mapping[str, np.ndarray],
