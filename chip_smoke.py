@@ -7,12 +7,16 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
 (nvcc, into build/torch_kernels/), then:
 
 1. holds kernels A and B against their plain torch versions at the shapes
-   config-3 inference gives them, and times both with CUDA events;
+   config-3 inference gives them (B at every conv shape of the forward:
+   the stem, L0 and the decoder's L0 concat at t=4, L1-L4 and the decoder's
+   L3 concat at t=2; its launch plan against `kernel_plan`'s), and times
+   both with CUDA events;
 2. drives BASELINE config 3 (sparse U-ResNet inference, 512^3 events of
    ~1e5 voxels, batch 8, bf16, tile schedule (4,2,2,2,2); random weights
-   from a seed) through `models.construct("uresnet_sparse")` for three
-   forwards, counts the kernel launches of those forwards, and compares
-   the logits with the same model on the plain versions;
+   from a seed) through `models.construct("uresnet_sparse")`: one
+   profiled forward (device time by kernel kind), then three timed
+   forwards whose kernel launches it counts, and compares the logits with
+   the same model on the plain versions;
 3. holds the backward's kernels against their plain versions on config
    4's real halo maps (batch 2): kernel C (d_W) at every conv shape of the
    path and kernel B as d_x on flipped weights;
@@ -179,10 +183,17 @@ def check_halo_conv(name, level, t, cin, cout, rng, device):
     """Kernel B vs its plain version on one level's real halo maps, raw and
     with the epilogue. Returns (max_abs_err, kernel ms, plain ms, bound
     ms, bound by) of the epilogue form."""
+    from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
-        halo_conv, halo_conv_plain)
+        halo_conv, halo_conv_plain, kernel_plan)
     B, T = level.keys.shape
     cells = t ** 3
+    plan = cuda.library().halo_conv_plan(T, t, 3, cin, cout)
+    cs, cw = divmod(plan, 1024)
+    require((cs, cw) == kernel_plan(t, 3, cin, cout),
+            f"halo_conv {name}: the kernel plans (Cout slice, chunk) "
+            f"{(cs, cw)}, ops/cuda/halo_conv.py:kernel_plan "
+            f"{kernel_plan(t, 3, cin, cout)}")
     live = level.halo.blive[..., None, None].cpu().numpy()
     x = rng.standard_normal((B, T, cells, cin), dtype=np.float32) * live
     w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
@@ -218,7 +229,8 @@ def check_halo_conv(name, level, t, cin, cout, rng, device):
     bound_ms, by = bound(2 * 27 * cin * cout * n_live * cells, nbytes)
     print(f"halo_conv {name}: kernel bn_act {ms:.3f} ms, raw {raw_ms:.3f} "
           f"ms, plain bn_act {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({by})")
+          f"({by}); {cout // cs} Cout slice(s) of {cs}, chunks of {cw} "
+          f"channels")
     return worst, ms, plain_ms, bound_ms, by
 
 
@@ -291,7 +303,8 @@ def check_dw(name, level, t, cin, cout, rng, device):
 
 def check_dx(name, level, t, c, rng, device):
     """Kernel B as the conv's d_x: conv(g, flip_weights(w)) against its
-    plain version, to the bf16 bound."""
+    plain version, to the bf16 bound. Returns (max_abs_err, kernel ms,
+    plain ms, bound ms, bound by)."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
         flip_weights, halo_conv, halo_conv_plain)
     B, T = level.keys.shape
@@ -320,7 +333,7 @@ def check_dx(name, level, t, c, rng, device):
     bound_ms, by = bound(2 * 27 * c * c * n_live * t ** 3, nbytes)
     print(f"halo_conv d_x {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, bound {bound_ms:.4f} ms ({by})")
-    return float(err.max())
+    return float(err.max()), ms, plain_ms, bound_ms, by
 
 
 def row_map(halo, t, device):
@@ -548,19 +561,22 @@ def main() -> int:
     lv = graph.levels
     print("tile rows per level:", [tuple(l.keys.shape) for l in lv],
           "live:", [int(l.num.max()) for l in lv])
-    # every conv shape class of the path: the stem (Cin 1, scalar staging),
-    # square blocks at t=4 and t=2, and the decoder's first conv after the
-    # skip concat (Cin = 2 Cout; 27x128x64 is the largest weight stack)
-    halo_res = [check_halo_conv("L0 t=4 16->16", lv[0], 4, 16, 16, rng,
-                                device),
-                check_halo_conv("stem L0 t=4 1->16", lv[0], 4, 1, 16, rng,
-                                device),
-                check_halo_conv("L2 t=2 48->48", lv[2], 2, 48, 48, rng,
-                                device),
-                check_halo_conv("dec L3 t=2 128->64", lv[3], 2, 128, 64, rng,
-                                device),
-                check_halo_conv("L4 t=2 80->80", lv[4], 2, 80, 80, rng,
-                                device)]
+    # every conv shape class of the path: the stem (Cin 1, packed into the
+    # MMA depth), square blocks at t=4 and at each t=2 level, and the
+    # decoder's first conv after the skip concat (Cin = 2 Cout) at L0 and
+    # L3 (27x128x64 is the largest weight stack)
+    halo_res = {name: check_halo_conv(name, lv[l], t, ci, co, rng, device)
+                for name, l, t, ci, co in (
+                    ("L0 t=4 16->16", 0, 4, 16, 16),
+                    ("stem L0 t=4 1->16", 0, 4, 1, 16),
+                    ("dec L0 t=4 32->16", 0, 4, 32, 16),
+                    ("L1 t=2 32->32", 1, 2, 32, 32),
+                    ("L2 t=2 48->48", 2, 2, 48, 48),
+                    ("dec L3 t=2 128->64", 3, 2, 128, 64),
+                    ("L4 t=2 80->80", 4, 2, 80, 80))}
+    print("halo_conv per shape (bn_act ms, plain ms, bound ms): " + "; ".join(
+        f"{k} {r[1]:.3f} / {r[2]:.3f} / {r[3]:.4f}"
+        for k, r in halo_res.items()))
     link = graph.links[1]      # levels 1 -> 2, a real link (link 0 is
     #                            the identity of the 4 -> 2 tile halving)
     Tf, Tc = lv[1].keys.shape[1], lv[2].keys.shape[1]
@@ -576,6 +592,8 @@ def main() -> int:
     load_jax_variables(model, variables)
     with torch.no_grad():
         model(coords, values, nv)                     # warm-up
+        profile_run(lambda: model(coords, values, nv),
+                    "fused config-3 forward", top=8)
         torch.cuda.synchronize()
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
@@ -659,8 +677,10 @@ def main() -> int:
                  ("L4 t=2 80->80", 4, 2, 80, 80)]
     dw_res = {name: check_dw(name, lv[l], t, ci, co, rng, device)
               for name, l, t, ci, co in dw_shapes}
-    dx_err = max(check_dx("L0 t=4 16->16", lv[0], 4, 16, rng, device),
-                 check_dx("L4 t=2 80->80", lv[4], 2, 80, rng, device))
+    dx_res = {"d_x L0 t=4 16->16": check_dx("L0 t=4 16->16", lv[0], 4, 16,
+                                            rng, device),
+              "d_x L4 t=2 80->80": check_dx("L4 t=2 80->80", lv[4], 2, 80,
+                                            rng, device)}
     del graph, lv
 
     # -- phase 4: config-4 training through TrainVal -----------------------
@@ -992,6 +1012,7 @@ def main() -> int:
         return {p: c[name] for p, c in paths.items()}
 
     dw0 = dw_res["L0 t=4 16->16"]
+    b0 = halo_res["L0 t=4 16->16"]
     kernels = [
         {"name": "halo_conv", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/halo_conv.cu",
@@ -1002,10 +1023,12 @@ def main() -> int:
                            "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1259"],
          "launches": train_launches["halo_conv"],
          "launches_by_path": by_path("halo_conv"),
-         "max_abs_err": max([r[0] for r in halo_res] + [dx_err]),
-         "ms": halo_res[0][1], "plain_ms": halo_res[0][2],
-         "bound_ms": halo_res[0][3], "bound_by": halo_res[0][4],
-         "library_ms": None},
+         "max_abs_err": max(r[0] for r in (*halo_res.values(),
+                                           *dx_res.values())),
+         "ms": b0[1], "plain_ms": b0[2], "bound_ms": b0[3],
+         "bound_by": b0[4], "library_ms": None,
+         "ms_by_shape": {k: r[1] for k, r in (*halo_res.items(),
+                                              *dx_res.items())}},
         {"name": "halo_conv_dw", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/halo_conv_dw.cu",
          "replaces": "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1175",

@@ -160,14 +160,17 @@ def test_kernel_reads_model_rows_without_pack():
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     at, bt, mt = (torch.from_numpy(v) for v in (a, b, mask))
     out = torch.empty(2, 64, 64, 16)
-    kw = hc.kernel_weights(wt)
-    assert kw.shape == (27, 16, 16)
-    np.testing.assert_array_equal(kw.numpy(), w.transpose(0, 2, 1))
+    kw = hc.kernel_weights(wt)      # (Cout, 27 * 16): row n is w[:, :, n]
+    assert kw.shape == (16, 27 * 16)
+    np.testing.assert_array_equal(kw.numpy(),
+                                  w.transpose(2, 0, 1).reshape(16, -1))
     args = hc.launch_args(xt, kw, spec, 4, 3, at, bt, 0.1, mt, out)
     assert args[0] == xt.data_ptr() and args[1] == kw.data_ptr()
     assert args[-6:] == (2, 64, 4, 3, 16, 16)
-    stem = hc.kernel_weights(torch.ones(27, 1, 8))   # Cin = 1 pads to 16
-    assert stem.shape == (27, 8, 16) and stem[..., 1:].abs().sum() == 0
+    # Cin = 1: the 27 offsets packed into a depth of 32, not 27 x 16
+    stem = hc.kernel_weights(torch.ones(27, 1, 8))
+    assert stem.shape == (8, 32) and stem[:, :27].eq(1).all()
+    assert stem[:, 27:].abs().sum() == 0
     with pytest.raises(ValueError):
         hc.halo_conv(xt, wt, spec, 4, 3, a=at)
 
@@ -195,3 +198,52 @@ def test_tiled_conv_dispatch_matches_reference(epilogue):
         out = ttc.submanifold_conv_tiled(p[0], p[1], spec, 4, 3, p[2])
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5,
                                rtol=1e-5)
+
+
+def _im2col(x, spec, t, kp):
+    """(B, T, cells, kp): each cell's 27 neighbor rows from the plain
+    extend, in the kernel's depth order (offset-major, channels padded to
+    16; packed, offset-major over the true channels, for Cin < 16)."""
+    B, T, cells, Cin = x.shape
+    ext = halo26_extend(x, spec, t, 3).reshape(B, T, *(t + 2,) * 3, Cin)
+    cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
+    cols = []
+    for d0 in range(3):
+        for d1 in range(3):
+            for d2 in range(3):
+                v = ext[:, :, d0:d0 + t, d1:d1 + t, d2:d2 + t]
+                cols.append(torch.nn.functional.pad(
+                    v.reshape(B, T, cells, Cin), (0, cpad - Cin)))
+    a = torch.cat(cols, -1)
+    return torch.nn.functional.pad(a, (0, kp - a.shape[-1]))
+
+
+@pytest.mark.parametrize("t,Cin,Cout", [(4, 1, 128), (4, 12, 40),
+                                        (4, 16, 128), (2, 24, 32),
+                                        (2, 128, 64)])
+def test_kernel_weights_rebuild_the_conv(t, Cin, Cout):
+    """The kernel's GEMM, rebuilt in torch from `kernel_weights`: the plain
+    extend's im2col in the kernel's depth order times the (Cout, kp)
+    weights, one block's slice of output channels at a time and, within
+    it, one staged chunk of channels after another (`kernel_plan`), equals
+    `halo_conv_plain` in f32. Holds the packing's index arithmetic where no
+    card can run the kernel; 128 -> 64 at t=2 splits Cout across blocks
+    and Cin into chunks."""
+    keys, x, w, *_ = _case(t, Cin, Cout, 40, seed=Cin)
+    _, spec = _specs(keys)
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    kw = hc.kernel_weights(wt)
+    cs, cw = hc.kernel_plan(t, 3, Cin, Cout)
+    assert Cout % cs == 0 and (cs < Cout) == (Cin == 128)
+    a = _im2col(xt, spec, t, kw.shape[1])
+    cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
+    chunk = torch.arange(kw.shape[1]) % cpad // cw   # depth kk's chunk
+    assert int(chunk.max()) + 1 == cpad // cw
+    y = torch.cat([sum(a[..., chunk == c] @ kw[n:n + cs, chunk == c].t()
+                       for c in range(cpad // cw))
+                   for n in range(0, Cout, cs)], -1)
+    y = y * spec.blive[:, :, None, None]
+    ref = hc.halo_conv_plain(xt, wt, spec, t, 3).numpy()
+    # f32 sums of up to 27 x 128 terms in two orders: 1e-5 of the scale
+    np.testing.assert_allclose(y.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * np.abs(ref).max())

@@ -1,0 +1,264 @@
+"""Times kernel B (the fused halo conv) of several source trees in turns on
+one card, at every shape the config-3 forward and the config-4 backward
+give it, and kernel A's link gathers beside `torch.gather`.
+
+    python -m uresnet_pytorch_tpu_torch.bench_kernel_b \
+        [--tree NAME=DIR ...] [--rounds 2] [--check NAME ...] [--gather]
+        [--out FILE]
+
+A tree is a directory holding a `uresnet_pytorch_tpu_torch` package (a
+checkout, or a copy of the package with an edited `csrc/`); `this` is the
+tree this module belongs to and is always timed. Each tree runs in a
+process of its own, which imports that tree's package, builds its kernels
+(all trees' builds start together) and times its `halo_conv` wrapper with
+CUDA events: the mean of 20 launches after 3 warm-ups, on random bf16
+inputs made from one seed, on the real halo maps of config 3 (batch 8)
+and config 4 (batch 2, d_x on flipped weights). The trees run in the
+order given and then in reverse, `rounds` times, so a drift of the card
+falls on every tree alike. `--check NAME` holds that tree's kernel to its
+plain version at every shape first (the bf16 bound of `chip_smoke.py`);
+`--gather` also times kernel A against `torch.gather` on link 1, five
+times per process. The table goes to stdout and every timing, as JSON,
+to `--out` (default `build/bench_kernel_b.json`).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+# name, config (3 or 4), level, t, Cin, Cout, d_x (raw on flipped weights)
+SHAPES = [("L0 t=4 16->16", 3, 0, 4, 16, 16, False),
+          ("stem L0 t=4 1->16", 3, 0, 4, 1, 16, False),
+          ("dec L0 t=4 32->16", 3, 0, 4, 32, 16, False),
+          ("L1 t=2 32->32", 3, 1, 2, 32, 32, False),
+          ("L2 t=2 48->48", 3, 2, 2, 48, 48, False),
+          ("dec L3 t=2 128->64", 3, 3, 2, 128, 64, False),
+          ("L4 t=2 80->80", 3, 4, 2, 80, 80, False),
+          ("d_x L0 t=4 16->16", 4, 0, 4, 16, 16, True),
+          ("d_x L4 t=2 80->80", 4, 4, 2, 80, 80, True)]
+
+
+def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
+    import torch
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _inputs(level, t, cin, cout, seed):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    B, T = level.keys.shape
+    live = level.halo.blive[..., None, None].cpu().numpy()
+    x = rng.standard_normal((B, T, t ** 3, cin), dtype=np.float32) * live
+    w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
+        * np.float32((2.0 / (27 * cin)) ** 0.5)
+    a = rng.standard_normal(cout, dtype=np.float32) * 0.2 + 1.0
+    b = rng.standard_normal(cout, dtype=np.float32) * 0.2
+    dev = level.keys.device
+    x, w = (torch.from_numpy(v).to(dev, torch.bfloat16) for v in (x, w))
+    a, b = (torch.from_numpy(v).to(dev) for v in (a, b))
+    return x, w, dict(a=a, b=b, alpha=0.1,
+                      mask=level.occ & level.halo.blive[..., None])
+
+
+def worker(check: bool, gather: bool) -> dict:
+    """Times this process's package (the first on sys.path)."""
+    import torch
+
+    import chip_smoke
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    device = torch.device("cuda", 0)
+    graphs = {}
+    with torch.no_grad():
+        coords, values, nv = chip_smoke.events(chip_smoke.config3(), device)
+        graphs[3] = build_tile_graph(coords, values, nv, chip_smoke.config3())
+        blob = chip_smoke.event_blob(chip_smoke.config4(), chip_smoke.BATCH4)
+        graphs[4] = build_tile_graph(
+            *(torch.from_numpy(blob[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), chip_smoke.config4())
+    out = {"package": hc.__file__, "shapes": {}, "errors": {}}
+    for i, (name, cfg, lvl, t, cin, cout, dx) in enumerate(SHAPES):
+        level = graphs[cfg].levels[lvl]
+        x, w, ep = _inputs(level, t, cin, cout, seed=i)
+        if dx:
+            w, ep = hc.flip_weights(w).contiguous(), None
+        forms = {"raw": {}} if dx else {"bn_act": ep, "raw": {}}
+        res = {}
+        for form, kw in forms.items():
+            def run():
+                return hc.halo_conv(x, w, level.halo, t, 3, **kw)
+            try:
+                if check:
+                    got = run().float()
+                    ref = hc.halo_conv_plain(x, w, level.halo, t, 3,
+                                             **kw).float()
+                    scale = max(float(ref.abs().max()), 1e-30)
+                    err = (got - ref).abs()
+                    ok = bool((err / scale <= chip_smoke.HALO_ATOL
+                               + chip_smoke.HALO_RTOL * ref.abs() / scale)
+                              .all())
+                    res[form + "_max_abs_err"] = float(err.max())
+                    res[form + "_ok"] = ok
+                res[form] = _time_ms(run)
+            except RuntimeError as e:         # a variant that cannot launch
+                out["errors"][f"{name} {form}"] = str(e)
+                res[form] = None
+        out["shapes"][name] = res
+    if gather:
+        from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
+            windowed_gather)
+        import numpy as np
+        lv, link = graphs[3].levels, graphs[3].links[1]
+        rng = np.random.default_rng(0)
+        out["gather"] = {}
+        for name, spec, rows in (
+                ("link1 child", link.children[0], lv[1].keys.shape[1]),
+                ("link1 parent", link.parents[0], lv[2].keys.shape[1] * 8)):
+            B = spec.idx.shape[0]
+            src = torch.from_numpy(rng.standard_normal(
+                (B, rows, 48), dtype=np.float32)).to(device, torch.bfloat16)
+            flat = torch.where(spec.ok, spec.idx, 0).long()[..., None]
+            flat = flat.expand(*spec.idx.shape, 48).contiguous()
+            times = {"kernel": [], "torch.gather": []}
+            for _ in range(5):
+                times["kernel"].append(_time_ms(
+                    lambda: windowed_gather(src, spec.idx, spec.ok)))
+                times["torch.gather"].append(_time_ms(
+                    lambda: torch.gather(src, 1, flat)))
+            out["gather"][name] = times
+    return out
+
+
+def _build(trees: dict) -> None:
+    """Builds every tree's kernel library at once, one process each."""
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", "from uresnet_pytorch_tpu_torch.ops import "
+         "cuda; print(cuda.build())"], cwd=d, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for name, d in trees.items()}
+    for name, p in procs.items():
+        log, _ = p.communicate()
+        if p.returncode:
+            raise RuntimeError(f"tree {name}: build failed\n{log}")
+
+
+def _run(tree: Path, check: bool, gather: bool) -> dict:
+    """One worker process: this file run as a script, with `tree` first on
+    sys.path so that the package under test is that tree's."""
+    res = subprocess.run([sys.executable, __file__, "--worker", str(tree)]
+                         + ["--check", "this"] * check + ["--gather"] * gather,
+                         cwd=ROOT, capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"tree {tree}: worker failed\n{res.stdout}"
+                           f"{res.stderr}")
+    line = [l for l in res.stdout.splitlines() if l.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):])
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--tree", action="append", default=[],
+                   help="NAME=DIR, a tree to time beside this one")
+    p.add_argument("--rounds", type=int, default=2)
+    p.add_argument("--check", action="append", default=[])
+    p.add_argument("--gather", action="store_true")
+    p.add_argument("--out", type=Path,
+                   default=Path("build/bench_kernel_b.json"))
+    p.add_argument("--worker", help=argparse.SUPPRESS)
+    args = p.parse_args(argv)
+    if args.worker:
+        sys.path[:1] = [args.worker, str(ROOT)]
+        print("RESULT", json.dumps(worker(bool(args.check), args.gather)))
+        return 0
+    trees = {"this": ROOT}
+    for spec in args.tree:
+        name, _, d = spec.partition("=")
+        trees[name] = Path(d).resolve()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(smi, flush=True)
+    _build(trees)
+    order = list(trees)
+    runs = {name: [] for name in trees}
+    for r in range(args.rounds):
+        for name in order + order[::-1]:
+            res = _run(trees[name], name in args.check and r == 0,
+                       args.gather)
+            runs[name].append(res)
+            print(f"round {r} {name}: done", flush=True)
+    first = order[0]
+    print(f"{'shape':24s} {'form':6s} " + " ".join(
+        f"{n[:14]:>16s}" for n in order) + "  (median ms of "
+        f"{2 * args.rounds} runs, x{first} = ratio to {first})")
+    table = {}
+    for name, *_ in SHAPES:
+        for form in ("bn_act", "raw"):
+            cells = {}
+            for n in order:
+                vals = [r["shapes"][name].get(form) for r in runs[n]]
+                vals = [v for v in vals if v is not None]
+                cells[n] = statistics.median(vals) if vals else None
+            if all(v is None for v in cells.values()):
+                continue
+            table[f"{name} {form}"] = cells
+            base = cells[first]
+            print(f"{name:24s} {form:6s} " + " ".join(
+                "            n/a " if v is None else
+                f"{v:8.3f} x{v / base:5.2f} " if base else f"{v:8.3f}       "
+                for v in cells.values()))
+    for n in order:
+        errors = sorted({k for r in runs[n] for k in r["errors"]})
+        if errors:
+            print(f"{n}: no launch at {', '.join(errors)}")
+        checks = [(s, form, res[form + "_ok"], res[form + "_max_abs_err"])
+                  for r in runs[n] for s, res in r["shapes"].items()
+                  for form in ("bn_act", "raw") if form + "_ok" in res]
+        if checks:
+            bad = [c for c in checks if not c[2]]
+            print(f"{n}: {len(checks) - len(bad)} of {len(checks)} checks "
+                  f"within the bf16 bound, max|err| "
+                  f"{max(c[3] for c in checks):.3e}"
+                  + "".join(f"; FAILED {s} {form}" for s, form, *_ in bad))
+    for g in ("link1 child", "link1 parent"):
+        ks = [v for n in order for r in runs[n] if "gather" in r
+              for v in r["gather"][g]["kernel"]]
+        ls = [v for n in order for r in runs[n] if "gather" in r
+              for v in r["gather"][g]["torch.gather"]]
+        if ks:
+            print(f"gather {g}: kernel A median {statistics.median(ks):.4f} "
+                  f"ms [{min(ks):.4f}, {max(ks):.4f}], torch.gather median "
+                  f"{statistics.median(ls):.4f} ms [{min(ls):.4f}, "
+                  f"{max(ls):.4f}], {len(ks)} timings each")
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(
+        {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
+         "table": table, "runs": runs}, indent=1))
+    failed = [(n, s) for n in args.check for r in runs[n]
+              for s, res in r["shapes"].items()
+              if res.get("bn_act_ok") is False or res.get("raw_ok") is False]
+    if failed:
+        print(f"checks failed: {failed}")
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,190 +8,545 @@
 //   halo_conv_raw on flip_weights(w) (the adjoint stencil)
 // The TPU kernels gather neighbor slabs with one-hot MXU matmuls over
 // windows + correction rows, in lane-packed layouts that only exist for
-// certain (t, C). Hopper has native indexed loads: each block reads its
+// certain (t, C). Hopper has native indexed loads: a block reads its
 // tiles' 26 neighbors' slab cells straight from plain (B, T, t^dim, C) rows
 // through the halo maps idx/ok, so one kernel serves every (t, C), Cin = 1
 // included.
 //
-// What bounds it on an H100: the conv is a small implicit GEMM per tile
-// (rows = cells, K = 27 x Cin, N = Cout <= 128) whose A operand comes from
-// an indexed gather, so it is bound by staging the extended tiles (global
-// loads of neighbor rows, then shared-memory traffic), not by tensor-core
-// FLOPs. Design: one block of 4 warps per 64 output rows (one t=4 tile, or
-// eight t=2 tiles). The block stages its tiles' (t+2)^dim x Cin extended
-// blocks in shared memory as bf16 (16-byte loads when Cin % 8 == 0;
-// halo_stage.cuh, shared with kernel C),
-// padded to 16 channels. Each warp owns 16 rows x Cout and runs mma.sync
-// m16n8k16 (bf16 in, f32 accumulate) over the 3^dim offsets, reading A
-// rows at the offset's shifted ext position from shared memory and B
-// straight from the (K, Cin, Cout) weights through the read-only cache:
-// the largest stacks (27x128x64 bf16 = 442 KB) do not fit the 227 KB of
-// shared memory a block may use, but every block reads the same weights,
-// so they stay in L1/L2. The epilogue (per-channel affine, leaky, cell
-// mask) runs on the f32 accumulators and rounds once on store. Tiles at or
-// past the live prefix (blive = 0) write zeros; a block with no live tile
-// skips the staging and the MMAs.
+// What bounds it on an H100: per group of 64 output rows (one t=4 tile, or
+// eight t=2 tiles) the conv is an implicit GEMM, rows x (K = 3^dim offsets
+// x Cin) x Cout, whose A operand is the group's (t+2)^dim extended block at
+// each offset's shifted rows. The card's bound is the bytes of x and of the
+// output (0.25 ms at config-3 L0). A kernel pays on top for staging
+// (indexed loads of neighbor rows; at t=2 the extended block is 8x the
+// output rows), for the MMA loop's latency, and for weights. The earlier
+// design ran one short block per 64 rows, each staging, then multiplying,
+// then storing in series, with four scalar loads per A fragment and every
+// warp re-reading the whole 27 x Cout x Cin stack (up to 442 KB) from
+// L1/L2; its MMA loop took 70-85% of its time, 14-56x over the bound.
+//
+// Design:
+// - Weights resident in shared memory. The weights come as the GEMM's B
+//   operand, (Cout, kp) with depth kp = K x round_up(Cin, 16) (offset-major,
+//   channel-minor) or, for Cin < 16, kp = round_up(K x Cin, 16): the
+//   offsets packed into the MMA depth, so the stem's 27 offsets of one
+//   channel are two 16-deep MMA steps, not 27. A block copies its slice of
+//   Cout rows once; A and B fragments come by ldmatrix (rows padded by 16
+//   bytes: conflict-free), one depth step ahead of the MMAs, which are
+//   mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// - A block walks many groups (grid-stride over (event, group), as many
+//   blocks as fit on the SMs), so the weight copy and the offset, geometry
+//   and affine tables are set up once per block, not once per 64 rows.
+// - Each group's 27 neighbor rows per tile are read into registers one
+//   group ahead, so their loads land while the previous group multiplies.
+//   The extended block comes by 16-byte cp.async (zero-filled for a
+//   missing neighbor), all of a block's copies in flight at once; at
+//   Cin < 16 it is staged at its true width by plain loads.
+// - Where the stack and one buffer of the whole extended block fit the
+//   227 KB a block may use, the block stages a group, then multiplies it
+//   (several blocks per SM overlap each other). Where they do not (wide
+//   Cin: dec L3 128->64 holds 442 KB of weights), Cout is split across
+//   blocks (blockIdx.y), each staging the extended block itself, and the
+//   block runs a pipeline of two buffers of channel chunks instead: the
+//   next chunk's copies fly while the MMAs run on this one. The plan takes
+//   the pipeline where it needs fewer slices (dec L3: 4 slices, not 8),
+//   and the widest chunks that fit. With one block per SM two warps share
+//   each 16 rows, one per half of the slice.
+// - The epilogue (per-channel affine, leaky, cell mask) runs on the f32
+//   accumulators and rounds once on store; a tile at or past the live
+//   prefix (blive = 0) writes zeros, and a group with no live tile skips
+//   the staging and the MMAs.
 
 #include "halo_stage.cuh"
 
 namespace {
 
+using halo::FastDiv;
 using halo::ipow;
 
-constexpr int kRows = 64;                 // output rows per block
-constexpr int kWarps = kRows / 16;        // each warp: 16 rows x Cout
-constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 64;                 // output rows per group
+constexpr int kWarpsM = kRows / 16;       // warps along the rows
+constexpr int kMaxThreads = 2 * kWarpsM * 32;
 constexpr int kPad = 8;                   // bf16 pad per smem row (bank spread)
-constexpr int kMaxTiles = 16;             // tiles per block (dim 2, t = 2)
+constexpr int kMaxNbr = 216;              // tiles x K per group: 8 x 27, 16 x 9
+constexpr int kMaxK = 27;
+constexpr int kMaxSteps = kMaxK * 8;      // depth steps of one chunk (128 channels)
+constexpr int kMaxEcells = 1000;          // (t + 2)^dim for t = 8, dim 3
+constexpr int kMaxSmem = 232448 - 8192;   // dynamic smem, the static tables aside
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-// the staging geometry (width = cpad: every channel, padded to 16) plus the
-// output side
-struct Shape : halo::Stage {
-  int Cout;
-  int slices;                // 64-row slices per tile
-  int cpad;                  // Cin padded to 16
+// the shape and the launch plan, shared by host and device
+struct Plan {
+  int T, t, dim, Cin, Cout;
+  int cells, ecells, K;      // t^dim, (t+2)^dim, 3^dim
+  int tiles, mtiles;         // tiles per group, 16-row MMA tiles per group
+  int per_event, groups;     // groups per event, in all
+  int cpad;                  // Cin padded to 16 (Cin when packed)
+  int cw, nch;               // channels per staged chunk, chunks per group
+  int sa;                    // ext smem row stride (bf16): cw + kPad
+  int kp;                    // GEMM depth (a multiple of 16)
+  int sw;                    // weight smem row stride (bf16): kp + kPad
+  int cs;                    // Cout per slice (blockIdx.y)
+  int wn;                    // warps per 16 rows, each a share of the slice
+  int vec;                   // stage 8 channels per 16-byte cp.async
+  int ahead;                 // two ext buffers: stage the next chunk ahead
+  FastDiv by_unit, by_ecells, by_per_event, by_cin;
+  size_t w_bytes, ext_bytes, smem;
 };
 
-template <int NT, bool kEpilogue>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a));
+}
+
+// 16 bytes global -> shared without a register round trip; zeros when
+// !valid (src-size 0 reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>   // until at most N of this thread's copy groups are pending
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+  return (uint32_t)__bfloat16_as_ushort(lo) |
+         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Ext cell e of a tile (row-major, last axis fastest) takes, per axis, ext
+// coord 0 from the -1 neighbor's cell t-1, coord t+1 from the +1 neighbor's
+// cell 0 and coords 1..t from the tile itself (the slab_cells geometry of
+// ops/halo.py): its stencil offset (halo_offsets order with the center
+// inserted) | its source cell << 5.
+__device__ __forceinline__ int ext_source(int e, int t, int dim) {
+  const int E = t + 2;
+  int rem = e, kfull = 0, scell = 0, mk = 1, ms = 1;
+  for (int ax = 0; ax < dim; ++ax) {
+    const int ea = rem % E;
+    rem /= E;
+    kfull += (ea == 0 ? 0 : (ea == t + 1 ? 2 : 1)) * mk;
+    scell += (ea == 0 ? t - 1 : (ea == t + 1 ? 0 : ea - 1)) * ms;
+    mk *= 3;
+    ms *= t;
+  }
+  return kfull | (scell << 5);
+}
+
+template <int NTW, bool kEpilogue, bool kPacked, bool kAhead>
+__global__ void __launch_bounds__(kMaxThreads)
 halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
                  const __nv_bfloat16* __restrict__ wt,
                  const int* __restrict__ idx, const uint8_t* __restrict__ ok,
                  const uint8_t* __restrict__ live, const float* __restrict__ a,
                  const float* __restrict__ b, const uint8_t* __restrict__ mask,
-                 float alpha, __nv_bfloat16* __restrict__ out, Shape s) {
-  const int ev = blockIdx.y;
-  const int tile0 = (blockIdx.x / s.slices) * s.tiles;
-  const int slice = blockIdx.x % s.slices;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+                 float alpha, __nv_bfloat16* __restrict__ out, Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);      // cs x sw
+  __nv_bfloat16* ext_s = reinterpret_cast<__nv_bfloat16*>(smem + p.w_bytes);
+  __shared__ int nbr[2][kMaxNbr];         // per group buffer: source row per
+  //                                         (tile, offset), -1 = none
+  __shared__ int shift_s[kMaxK];          // ext-row shift of each offset, x sa
+  __shared__ short esrc[kMaxEcells];      // ext_source of each ext cell
+  __shared__ float2 ab_s[128];            // the slice's (a, b)
+  // depth table: packed, the smem offset of each depth kk (row + shift,
+  // channel); else per depth step of a chunk, (A offset, B depth) as one
+  // 8-byte entry, read in one load
+  __shared__ __align__(8) int dtab[2 * kMaxSteps];
+  int2* dtab2 = reinterpret_cast<int2*>(dtab);
+
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wm = warp % kWarpsM, wn = warp / kWarpsM;
   const int g = lane >> 2, q = lane & 3;
-  const size_t evrow = (size_t)ev * s.T;
+  const int n_lo = blockIdx.y * p.cs;     // first output channel of the slice
+  const int center = p.K / 2;
+  const int csteps = kPacked ? p.kp / 16 : p.K * (p.cw / 16);   // per chunk
 
-  extern __shared__ __align__(16) __nv_bfloat16 ext_s[];   // tiles*ecells x sa
-  __shared__ int nbr[kMaxTiles * 27];   // source row per (tile, offset), -1 = none
-  __shared__ int any_live;
-
-  if (threadIdx.x == 0) any_live = 0;
-  __syncthreads();
-  halo::build_nbr(nbr, &any_live, idx, ok, live, ev, tile0, s);
-  __syncthreads();
-
-  // rows owned by this thread's fragments: r0 = 16*warp + g, r1 = r0 + 8
-  int rtile[2], rcell[2], rbase[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int m = warp * 16 + g + 8 * h;
-    const int j = s.slices == 1 ? m / s.cells : 0;
-    const int cell = s.slices == 1 ? m - j * s.cells : slice * kRows + m;
-    rtile[h] = j;
-    rcell[h] = cell;
-    rbase[h] = j * s.ecells + halo::cell_ext_row(cell, s.t, s.dim);
+  // once per block: the slice's weights and the tables
+  {
+    const int vrow = p.kp / 8;
+    const uint4* src = reinterpret_cast<const uint4*>(wt + (size_t)n_lo * p.kp);
+    for (int i = tid; i < p.cs * vrow; i += nthreads) {
+      const int r = i / vrow, c = i - r * vrow;
+      *reinterpret_cast<uint4*>(w_s + (size_t)r * p.sw + c * 8) = __ldg(src + i);
+    }
+    if (tid < p.K) {
+      int rem = tid, doff = 0, me = 1;
+      for (int ax = 0; ax < p.dim; ++ax) {
+        doff += (rem % 3 - 1) * me;
+        rem /= 3;
+        me *= p.t + 2;
+      }
+      shift_s[tid] = doff * p.sa;
+    }
+    for (int e = tid; e < p.ecells; e += nthreads)
+      esrc[e] = (short)ext_source(e, p.t, p.dim);
+    if (kEpilogue)
+      for (int c = tid; c < p.cs; c += nthreads)
+        ab_s[c] = make_float2(a[n_lo + c], b[n_lo + c]);
+    __syncthreads();
+    if (kPacked) {  // depth kk = k*Cin + c reads ext row + shift_k, channel c;
+      //               the padded depth reads the row itself (its weights are 0)
+      for (int kk = tid; kk < p.kp; kk += nthreads) {
+        const int k = p.by_cin.div(kk);
+        dtab[kk] = k < p.K ? shift_s[k] + (kk - k * p.Cin) : 0;
+      }
+    } else {        // step ks of a chunk = (offset k, 16 of the chunk's channels)
+      const int per_k = p.cw / 16;
+      for (int ks = tid; ks < csteps; ks += nthreads) {
+        const int k = ks / per_k, c16 = (ks - k * per_k) * 16;
+        dtab2[ks] = make_int2(shift_s[k] + c16, k * p.cpad + c16);
+      }
+    }
   }
 
-  float acc[NT][4];
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  // ldmatrix rows of this lane: A (16 rows x 16 depth) as (rows 0-7 | 8-15)
+  // x (depth 0-7 | 8-15); B (16 channels x 16 depth) as (channels 0-7 |
+  // 8-15) x (depth 0-7 | 8-15), in the fragment order of m16n8k16
+  const int a_row = (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_col = (lane >> 4) * 8;
+  const int b_row = (lane & 7) + (lane >> 4) * 8;
+  const int b_col = ((lane >> 3) & 1) * 8;
+  const __nv_bfloat16* w_warp = w_s + (size_t)(wn * NTW * 8 + b_row) * p.sw + b_col;
+  const size_t ext_elems = p.ext_bytes / sizeof(__nv_bfloat16);
 
-  if (any_live) {
-    halo::stage_ext(ext_s, x + evrow * s.cells * s.Cin, nbr, 0, s);
-    __syncthreads();
-
-    for (int k = 0; k < s.K; ++k) {
-      const int doff = halo::offset_shift(k, s.dim, s.t + 2);
-      const __nv_bfloat16* a0p = ext_s + (size_t)(rbase[0] + doff) * s.sa + 2 * q;
-      const __nv_bfloat16* a1p = ext_s + (size_t)(rbase[1] + doff) * s.sa + 2 * q;
-      // B fragment: wt[k][n*8 + g][c0 + 2q .. +1] and the same at c0 + 8
-      const __nv_bfloat16* wk = wt + ((size_t)k * s.Cout + g) * s.cpad + 2 * q;
-      for (int c0 = 0; c0 < s.cpad; c0 += 16) {
-        uint32_t af[4] = {lds32(a0p + c0), lds32(a1p + c0), lds32(a0p + c0 + 8),
-                          lds32(a1p + c0 + 8)};
+  // A group's neighbor rows: `prefetch` loads this thread's entries of the
+  // maps (at most two of tiles x K <= 216) into registers, `take` writes
+  // them into nb as source rows (-1 = none; every offset of a dead tile or
+  // one past T) and returns true if this thread saw a live tile. Between
+  // the two the loads are in flight.
+  uint8_t pl[2], po[2];
+  int pi[2];
+  auto prefetch = [&](int grp) {
+    const int ev = p.by_per_event.div(grp);
+    const int tile0 = (grp - ev * p.per_event) * p.tiles;
 #pragma unroll
-        for (int n = 0; n < NT; ++n) {
-          const __nv_bfloat16* bn = wk + (size_t)n * 8 * s.cpad + c0;
-          halo::mma_16816(acc[n], af, ldg32(bn), ldg32(bn + 8));
+    for (int e = 0; e < 2; ++e) {
+      const int i = tid + e * nthreads;
+      pl[e] = 0;
+      if (grp < p.groups && i < p.tiles * p.K) {
+        const int j = i / p.K, k = i - j * p.K;
+        const int tile = tile0 + j;
+        if (tile < p.T) {
+          pl[e] = live[(size_t)ev * p.T + tile];
+          if (k != center) {
+            const size_t m = ((size_t)ev * (p.K - 1) + (k < center ? k : k - 1)) * p.T + tile;
+            po[e] = ok[m];
+            pi[e] = idx[m];
+          }
         }
       }
     }
-  }
-
-  // epilogue + store: c0,c1 -> row r0, cols 2q, 2q+1; c2,c3 -> row r1
+  };
+  auto take = [&](int grp, int* nb) {
+    const int ev = p.by_per_event.div(grp);
+    const int tile0 = (grp - ev * p.per_event) * p.tiles;
+    bool mine = false;
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int tile = tile0 + rtile[h];
-    if (tile >= s.T) continue;
-    const size_t row = evrow + tile;
-    const bool alive = live[row] != 0;
-    const bool keep = alive && (!kEpilogue || mask[row * s.cells + rcell[h]]);
-    __nv_bfloat16* orow = out + (row * s.cells + rcell[h]) * s.Cout;
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * q;
-      float z0 = acc[n][2 * h], z1 = acc[n][2 * h + 1];
-      if (kEpilogue) {
-        z0 = z0 * a[col] + b[col];
-        z1 = z1 * a[col + 1] + b[col + 1];
-        z0 = z0 >= 0.f ? z0 : alpha * z0;
-        z1 = z1 >= 0.f ? z1 : alpha * z1;
+    for (int e = 0; e < 2; ++e) {
+      const int i = tid + e * nthreads;
+      if (i < p.tiles * p.K) {
+        const int j = i / p.K, k = i - j * p.K;
+        int r = -1;
+        if (pl[e]) {
+          mine = true;
+          r = k == center ? tile0 + j : (po[e] ? pi[e] : -1);
+        }
+        nb[i] = r;
       }
-      if (!keep) z0 = z1 = 0.f;
-      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(z0, z1);
     }
+    return mine;
+  };
+  // start staging channels [ch*cw, ch*cw + cw) of a group's extended block
+  // into eb (zeros past Cin and for a missing neighbor): cp.async,
+  // committed by the caller, or plain loads and stores off the vector path
+  auto stage = [&](int grp, int ch, const int* nb, __nv_bfloat16* eb) {
+    const int ev = p.by_per_event.div(grp);
+    const __nv_bfloat16* xev = x + (size_t)ev * p.T * p.cells * p.Cin;
+    const int unit = p.vec ? 8 : 1;
+    const int per_cell = p.cw / unit;
+    const int c_lo = ch * p.cw;
+    for (int i = tid; i < p.tiles * p.ecells * per_cell; i += nthreads) {
+      const int cellu = p.by_unit.div(i);           // tile * ecells + e
+      const int c = (i - cellu * per_cell) * unit;
+      const int j = p.by_ecells.div(cellu);
+      const int es = esrc[cellu - j * p.ecells];
+      const int r = nb[j * p.K + (es & 31)];
+      const bool hit = r >= 0 && c_lo + c < p.Cin;
+      const __nv_bfloat16* src =
+          hit ? xev + ((size_t)r * p.cells + (es >> 5)) * p.Cin + c_lo + c : xev;
+      __nv_bfloat16* dst = eb + (size_t)cellu * p.sa + c;
+      if (p.vec)
+        cp_async16(dst, src, hit);
+      else
+        *dst = hit ? *src : __float2bfloat16(0.f);
+    }
+  };
+
+  float acc[NTW][4];
+#pragma unroll
+  for (int n = 0; n < NTW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  // the loop over (group, chunk) stages; with two buffers (ahead) the next
+  // stage is staged while this one multiplies, else each group in turn
+  int grp = blockIdx.x, ch = 0, eb_i = 0, nb_i = 0;
+  bool any_live = false;
+  prefetch(grp);
+  if (kAhead && grp < p.groups) {
+    any_live = __syncthreads_or(take(grp, nbr[0]));
+    if (any_live) stage(grp, 0, nbr[0], ext_s);
+    cp_async_commit();
+    prefetch(grp + gridDim.x);
+  }
+  while (grp < p.groups) {
+    const bool last = ch == p.nch - 1;
+    const int nxt = last ? grp + (int)gridDim.x : grp;
+    bool any_next = any_live;
+    __syncthreads();          // the last reads of the buffers refilled now
+    if (kAhead) {
+      const int nb_n = last ? nb_i ^ 1 : nb_i;
+      if (last) any_next = __syncthreads_or(nxt < p.groups && take(nxt, nbr[nb_n]));
+      if (nxt < p.groups && any_next)
+        stage(nxt, last ? 0 : ch + 1, nbr[nb_n], ext_s + (eb_i ^ 1) * ext_elems);
+      cp_async_commit();
+      if (last) prefetch(nxt + gridDim.x);   // read by the next group change
+      cp_async_wait<1>();     // this stage's copies, not the next one's
+    } else {
+      // one chunk a group here: the next group's maps load meanwhile
+      any_live = __syncthreads_or(take(grp, nbr[0]));
+      if (any_live) stage(grp, 0, nbr[0], ext_s);
+      cp_async_commit();
+      prefetch(nxt);
+      cp_async_wait<0>();
+      any_next = any_live;
+    }
+    __syncthreads();
+
+    const int* nb = nbr[nb_i];
+    const __nv_bfloat16* eb = ext_s + eb_i * ext_elems;
+    const int ev = p.by_per_event.div(grp);
+    const int tile0 = (grp - ev * p.per_event) * p.tiles;
+    const size_t evrow = (size_t)ev * p.T;
+    // one m-tile per warp, or (nch == 1) each of several in turn
+    for (int mt = wm; mt < p.mtiles; mt += kWarpsM) {
+      if (any_live) {
+        // A: this lane's ldmatrix row (unpacked) or its rows g, g + 8
+        // (packed), at their own ext rows
+        int rb[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = mt * 16 + (kPacked ? g + 8 * h : a_row);
+          const int j = m / p.cells;
+          rb[h] = (j * p.ecells + halo::cell_ext_row(m - j * p.cells, p.t, p.dim)) * p.sa
+                  + (kPacked ? 0 : a_col);
+        }
+        const __nv_bfloat16* wch = w_warp + ch * p.cw;
+        // the fragments of depth step ks: A at the step's shifted rows, B
+        // from the resident weights; loaded one step ahead of the MMAs
+        auto load = [&](int ks, uint32_t* af, uint32_t* bf) {
+          const __nv_bfloat16* wb;
+          if (kPacked) {
+            const int* o = dtab + ks * 16 + 2 * q;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const __nv_bfloat16* e = eb + rb[h];
+              af[h] = pack2(e[o[0]], e[o[1]]);
+              af[2 + h] = pack2(e[o[8]], e[o[9]]);
+            }
+            wb = wch + ks * 16;
+          } else {
+            const int2 o = dtab2[ks];
+            ldsm_x4(af, eb + rb[0] + o.x);
+            wb = wch + o.y;
+          }
+#pragma unroll
+          for (int n = 0; n + 1 < NTW; n += 2)
+            ldsm_x4(bf + 2 * n, wb + (size_t)n * 8 * p.sw);
+          if (NTW & 1) ldsm_x2(bf + 2 * (NTW - 1), wb + (size_t)(NTW - 1) * 8 * p.sw);
+        };
+        auto mma = [&](const uint32_t* af, const uint32_t* bf) {
+#pragma unroll
+          for (int n = 0; n < NTW; ++n) halo::mma_16816(acc[n], af, bf[2 * n], bf[2 * n + 1]);
+        };
+        uint32_t a0[4], b0[2 * NTW], a1[4], b1[2 * NTW];
+        load(0, a0, b0);
+        for (int ks = 0; ks < csteps; ks += 2) {
+          if (ks + 1 < csteps) load(ks + 1, a1, b1);
+          mma(a0, b0);
+          if (ks + 1 < csteps) {
+            if (ks + 2 < csteps) load(ks + 2, a0, b0);
+            mma(a1, b1);
+          }
+        }
+      }
+      if (!last) continue;
+
+      // epilogue + store: c0,c1 -> row g, cols 2q, 2q+1; c2,c3 -> row g + 8
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * 16 + g + 8 * h;
+        const int j = m / p.cells, cell = m - j * p.cells;
+        const int tile = tile0 + j;
+        if (tile >= p.T) continue;
+        const size_t row = evrow + tile;
+        const bool keep = nb[j * p.K + center] >= 0 &&
+                          (!kEpilogue || mask[row * p.cells + cell]);
+        __nv_bfloat16* orow = out + (row * p.cells + cell) * p.Cout + n_lo;
+#pragma unroll
+        for (int n = 0; n < NTW; ++n) {
+          const int col = (wn * NTW + n) * 8 + 2 * q;
+          float z0 = acc[n][2 * h], z1 = acc[n][2 * h + 1];
+          if (kEpilogue) {
+            const float2 ab0 = ab_s[col], ab1 = ab_s[col + 1];
+            z0 = z0 * ab0.x + ab0.y;
+            z1 = z1 * ab1.x + ab1.y;
+            z0 = z0 >= 0.f ? z0 : alpha * z0;
+            z1 = z1 >= 0.f ? z1 : alpha * z1;
+          }
+          if (!keep) z0 = z1 = 0.f;
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(z0, z1);
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NTW; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+    }
+
+    if (kAhead) {
+      eb_i ^= 1;
+      if (last) nb_i ^= 1;
+    }
+    any_live = any_next;
+    grp = nxt;
+    ch = last ? 0 : ch + 1;
   }
 }
 
-template <int NT, bool kEpilogue>
+template <int NTW, bool kEpilogue, bool kPacked, bool kAhead>
 int launch(const void* x, const void* wt, const void* idx, const void* ok,
            const void* live, const void* a, const void* b, const void* mask,
-           float alpha, void* out, int B, const Shape& s, cudaStream_t stream) {
-  const size_t smem = sizeof(__nv_bfloat16) * (size_t)s.tiles * s.ecells * s.sa;
-  auto kernel = halo_conv_kernel<NT, kEpilogue>;
+           float alpha, void* out, int B, const Plan& p, cudaStream_t stream) {
+  auto kernel = halo_conv_kernel<NTW, kEpilogue, kPacked, kAhead>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (e != cudaSuccess) return (int)e;
-  const int groups = (s.T + s.tiles - 1) / s.tiles;
-  dim3 grid(groups * s.slices, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const int threads = p.wn * kWarpsM * 32;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                         p.smem)) != cudaSuccess)
+    return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int slices = p.Cout / p.cs;
+  int gx = (sms * per_sm + slices - 1) / slices;
+  if (gx > p.groups) gx = p.groups;
+  kernel<<<dim3(gx, slices), threads, p.smem, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)wt, (const int*)idx,
       (const uint8_t*)ok, (const uint8_t*)live, (const float*)a, (const float*)b,
-      (const uint8_t*)mask, alpha, (__nv_bfloat16*)out, s);
+      (const uint8_t*)mask, alpha, (__nv_bfloat16*)out, p);
   return (int)cudaGetLastError();
 }
 
-template <bool kEpilogue>
-int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
-             const void* live, const void* a, const void* b, const void* mask,
-             float alpha, void* out, int B, int T, int t, int dim, int Cin,
-             int Cout, cudaStream_t stream) {
-  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout % 8 || Cout > 128)
+// The plan: groups of 64 rows; Cout slices and staging as below; two warps
+// per 16 rows where only one block fits an SM. Mirrored by
+// ops/cuda/halo_conv.py:kernel_plan.
+int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
+  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout % 8 || Cout > 128 || B < 1)
     return (int)cudaErrorInvalidValue;
-  Shape s;
-  s.Cout = Cout;
-  const int cells = ipow(t, dim);
-  int tiles;
-  if (cells <= kRows) {
-    if (kRows % cells) return (int)cudaErrorInvalidValue;
-    tiles = kRows / cells;
-    s.slices = 1;
+  p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
+  p.cells = ipow(t, dim);
+  p.ecells = ipow(t + 2, dim);
+  p.K = ipow(3, dim);
+  if (p.ecells > kMaxEcells) return (int)cudaErrorInvalidValue;
+  if (p.cells <= kRows) {
+    if (kRows % p.cells) return (int)cudaErrorInvalidValue;
+    p.tiles = kRows / p.cells;
   } else {
-    if (cells % kRows) return (int)cudaErrorInvalidValue;
-    tiles = 1;
-    s.slices = cells / kRows;
+    if (p.cells % kRows) return (int)cudaErrorInvalidValue;
+    p.tiles = 1;
   }
-  if (tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
-  s.cpad = (Cin + 15) / 16 * 16;
-  s.init(T, t, dim, Cin, tiles, s.cpad, kPad, (uintptr_t)x % 16 == 0);
-  switch (Cout / 8) {
-#define HALO_CONV_CASE(N) \
-  case N: return launch<N, kEpilogue>(x, wt, idx, ok, live, a, b, mask, alpha, out, B, s, stream);
+  if (p.tiles * p.K > kMaxNbr) return (int)cudaErrorInvalidValue;
+  p.mtiles = p.tiles * p.cells / 16;
+  p.per_event = (T + p.tiles - 1) / p.tiles;
+  p.groups = B * p.per_event;
+  const bool packed = Cin < 16;
+  p.cpad = packed ? Cin : (Cin + 15) / 16 * 16;
+  p.kp = packed ? (p.K * Cin + 15) / 16 * 16 : p.K * p.cpad;
+  p.sw = p.kp + kPad;
+  p.vec = !packed && Cin % 8 == 0 && aligned;
+  auto ext_bytes = [&](int cw) {
+    const size_t sa = packed ? cw : cw + kPad;
+    return ((size_t)p.tiles * p.ecells * sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
+  };
+  // fewest Cout slices (n-tiles d per slice) whose weights and `bufs`
+  // buffers of chunk width cw fit, with the widest cw; 0 if none
+  const int n = Cout / 8;
+  auto fit = [&](int bufs, bool chunks, int* cw_out) {
+    for (int d = n; d >= 1; --d) {
+      if (n % d) continue;
+      const size_t wb = (size_t)d * 8 * p.sw * sizeof(__nv_bfloat16);
+      for (int cw = p.cpad; cw >= (chunks ? 16 : p.cpad); cw -= 16) {
+        if (p.cpad % cw) continue;
+        if (wb + bufs * ext_bytes(cw) <= (size_t)kMaxSmem) {
+          *cw_out = cw;
+          return d;
+        }
+      }
+    }
+    return 0;
+  };
+  // one buffer of the whole extended block, staged and then multiplied;
+  // or, where that needs more Cout slices (wide Cin), a pipeline of two
+  // buffers of channel chunks (the accumulators stay in registers across
+  // a group's chunks, so only where each warp has one 16-row tile)
+  int cw1 = 0, cw2 = 0;
+  const int d1 = fit(1, false, &cw1);
+  const int d2 = !packed && p.mtiles <= kWarpsM ? fit(2, true, &cw2) : 0;
+  p.ahead = d2 > d1;
+  const int d = p.ahead ? d2 : d1;
+  p.cs = d * 8;
+  p.cw = p.ahead ? cw2 : cw1;
+  p.w_bytes = (size_t)p.cs * p.sw * sizeof(__nv_bfloat16);
+  if (!p.cs) return (int)cudaErrorInvalidValue;
+  p.nch = p.cpad / p.cw;
+  p.sa = packed ? Cin : p.cw + kPad;
+  p.ext_bytes = ext_bytes(p.cw);
+  p.smem = p.w_bytes + (p.ahead ? 2 : 1) * p.ext_bytes;
+  p.wn = (2 * p.smem > (size_t)kMaxSmem && (p.cs / 8) % 2 == 0) ? 2 : 1;
+  const int unit = p.vec ? 8 : 1;
+  p.by_unit = FastDiv(p.cw / unit);
+  p.by_ecells = FastDiv(p.ecells);
+  p.by_per_event = FastDiv(p.per_event);
+  p.by_cin = FastDiv(Cin);
+  return 0;
+}
+
+template <bool kEpilogue, bool kPacked, bool kAhead>
+int dispatch_ntw(const void* x, const void* wt, const void* idx, const void* ok,
+                 const void* live, const void* a, const void* b, const void* mask,
+                 float alpha, void* out, int B, const Plan& p, cudaStream_t stream) {
+  switch (p.cs / 8 / p.wn) {
+#define HALO_CONV_CASE(N)                                                              \
+  case N:                                                                              \
+    return launch<N, kEpilogue, kPacked, kAhead>(x, wt, idx, ok, live, a, b, mask,     \
+                                                 alpha, out, B, p, stream);
     HALO_CONV_CASE(1) HALO_CONV_CASE(2) HALO_CONV_CASE(3) HALO_CONV_CASE(4)
     HALO_CONV_CASE(5) HALO_CONV_CASE(6) HALO_CONV_CASE(7) HALO_CONV_CASE(8)
     HALO_CONV_CASE(9) HALO_CONV_CASE(10) HALO_CONV_CASE(11) HALO_CONV_CASE(12)
@@ -201,12 +556,35 @@ int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
   }
 }
 
+template <bool kEpilogue>
+int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
+             const void* live, const void* a, const void* b, const void* mask,
+             float alpha, void* out, int B, int T, int t, int dim, int Cin,
+             int Cout, cudaStream_t stream) {
+  Plan p;
+  const int err = make_plan(p, B, T, t, dim, Cin, Cout, (uintptr_t)x % 16 == 0);
+  if (err) return err;
+  if (p.groups == 0) return 0;
+  // the pipeline (p.ahead) is its own kernel, so the single-buffer one
+  // keeps no registers for it; it never runs packed
+  if (Cin < 16)
+    return dispatch_ntw<kEpilogue, true, false>(x, wt, idx, ok, live, a, b, mask, alpha,
+                                                out, B, p, stream);
+  if (p.ahead)
+    return dispatch_ntw<kEpilogue, false, true>(x, wt, idx, ok, live, a, b, mask, alpha,
+                                                out, B, p, stream);
+  return dispatch_ntw<kEpilogue, false, false>(x, wt, idx, ok, live, a, b, mask, alpha,
+                                               out, B, p, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
-// bfloat16 tensors, f32 affine; wt is (K, Cout, round_up(Cin, 16)): the
-// weights transposed and zero-padded. Returns a cudaError_t (0 = launched).
+// bfloat16 tensors, f32 affine; wt is the GEMM's B operand (Cout, kp), kp =
+// 3^dim x round_up(Cin, 16) offset-major, or round_up(3^dim x Cin, 16) with
+// the offsets packed for Cin < 16 (ops/cuda/halo_conv.py:kernel_weights),
+// zero-padded. Returns a cudaError_t (0 = launched).
 int halo_conv_raw(const void* x, const void* wt, const void* idx, const void* ok,
                   const void* live, void* out, int B, int T, int t, int dim,
                   int Cin, int Cout, void* stream) {
@@ -221,6 +599,14 @@ int halo_conv_bn_act(const void* x, const void* wt, const void* idx,
                      void* stream) {
   return dispatch<true>(x, wt, idx, ok, live, a, b, mask, alpha, out, B, T, t, dim,
                         Cin, Cout, (cudaStream_t)stream);
+}
+
+// The plan's output channels per block and channels per staged chunk, as
+// cs * 1024 + cw (0 if it takes no such shape): chip_smoke.py holds
+// ops/cuda/halo_conv.py:kernel_plan to it.
+int halo_conv_plan(int T, int t, int dim, int Cin, int Cout) {
+  Plan p;
+  return make_plan(p, 1, T, t, dim, Cin, Cout, true) ? 0 : p.cs * 1024 + p.cw;
 }
 
 const char* kernel_error_string(int err) {

@@ -1,10 +1,12 @@
 """Build-at-first-use loader for the port's CUDA kernels.
 
-All sources under `uresnet_pytorch_tpu_torch/csrc/*.cu` compile with nvcc
-into ONE shared library with a plain C interface, loaded with ctypes:
+All sources under `uresnet_pytorch_tpu_torch/csrc/*.cu` compile with nvcc,
+one process per source, all started together, and link into ONE shared
+library with a plain C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -I csrc -o build/torch_kernels/lib<sha>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+         -Xcompiler -fPIC -I csrc -c -o <tmp>/<name>.o csrc/<name>.cu   (each)
+    nvcc -shared -o build/torch_kernels/lib<sha>.so <tmp>/*.o
 
 `<sha>` hashes the flags and every file under `csrc/`, the shared headers
 included, so an edited kernel or header rebuilds and an unchanged tree
@@ -21,13 +23,14 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +40,7 @@ _SIGNATURES = {
     "halo_conv_raw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_conv_bn_act": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
                          _I, _I, _I, _I, _I, _I, _P],
+    "halo_conv_plan": [_I, _I, _I, _I, _I],
     "halo_conv_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gather_rows": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
     "halo_extend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -74,14 +78,36 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *map(str, sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    os.replace(tmp, out)   # atomic: a concurrent loader never sees half a file
+    tmp = Path(tempfile.mkdtemp(prefix=f"{out.stem}.", dir=BUILD_DIR))
+    try:
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in sources():
+            obj = tmp / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            objs.append(obj)
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        errors = []
+        for cmd, proc in procs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{' '.join(cmd)}\n{log}")
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        lib = tmp / out.name
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib),
+               *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
+        # atomic: a concurrent loader never sees half a file
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     return out
 
 

@@ -92,13 +92,57 @@ def _check(x, w, halo, t, dim, a, b, mask):
 
 
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
-    """(K, Cin, Cout) -> (K, Cout, round_up(Cin, 16)), zero-padded: the
-    kernel's B-operand layout (at most 27x128x128 values, one small copy
-    per call)."""
+    """(K, Cin, Cout) -> (Cout, kp), zero-padded: the kernel's GEMM B
+    operand, one row per output channel. Depth kk = k * cpad + c with cpad =
+    round_up(Cin, 16) (kp = K * cpad), or, for Cin < 16, kk = k * Cin + c
+    with kp = round_up(K * Cin, 16): the offsets packed into the MMA depth
+    (at most 128 x 3456 values, one small copy per call)."""
     K, Cin, Cout = w.shape
-    wt = w.new_zeros(K, Cout, -(-Cin // 16) * 16)
-    wt[:, :, :Cin] = w.transpose(1, 2)
+    if Cin < 16:
+        wt = w.new_zeros(Cout, -(-K * Cin // 16) * 16)
+        wt[:, :K * Cin] = w.reshape(K * Cin, Cout).t()
+    else:
+        wt = w.new_zeros(Cout, K, -(-Cin // 16) * 16)
+        wt[:, :, :Cin] = w.permute(2, 0, 1)
+        wt = wt.reshape(Cout, -1)
     return wt
+
+
+def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> tuple:
+    """(output channels per block, channels per staged chunk) of the
+    kernel's plan, mirrored from `make_plan` in csrc/halo_conv.cu. Each
+    block holds its Cout slice's weight rows in shared memory (227 KB a
+    block, less 8 KB of static tables) beside either one buffer of the
+    whole extended block, or two buffers of channel chunks (a multiple of
+    16 dividing the padded Cin), pipelined: the latter only where it takes
+    fewer slices, at Cin >= 16 and with one 16-row tile per warp. Both
+    take the fewest slices, then the widest chunk."""
+    cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
+    tiles = max(1, 64 // cells)
+    packed = Cin < 16
+    cpad = Cin if packed else -(-Cin // 16) * 16
+    kp = -(-K * Cin // 16) * 16 if packed else K * cpad
+    n = Cout // 8
+
+    def fit(bufs, widths):
+        for d in range(n, 0, -1):
+            for cw in widths:
+                sa = cw if packed else cw + 8
+                ext = -(-tiles * ecells * sa * 2 // 16) * 16
+                if n % d == 0 and d * 8 * (kp + 8) * 2 + bufs * ext \
+                        <= 232448 - 8192:
+                    return d, cw
+        return 0, 0
+
+    one = fit(1, [cpad])
+    two = (0, 0)
+    if not packed and tiles * cells // 16 <= 4:
+        two = fit(2, [c for c in range(cpad, 0, -16) if cpad % c == 0])
+    d, cw = two if two[0] > one[0] else one
+    if not d:
+        raise ValueError(f"halo_conv: no plan for t={t}, Cin={Cin}, "
+                         f"Cout={Cout}")
+    return 8 * d, cw
 
 
 def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out) -> tuple:
