@@ -19,12 +19,17 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    the same model on the plain versions;
 3. holds the backward's kernels against their plain versions on config
    4's real halo maps (batch 2): kernel C (d_W) at every conv shape of the
-   path and kernel B as d_x on flipped weights;
+   step (its launch plan against `dw_plan`'s), timed, and kernel B as d_x
+   on flipped weights; then kernels C and B at the branches that other
+   widths and tile sizes reach (L3 128->128 with two Cout slices, C's
+   packed path at Cin 8, and tile_size=8's one-tile chunks on a t=8 graph
+   of the same events);
 4. drives BASELINE config 4 (the same model training at batch 2 with
    remat_mode="stage_dots" and Adam at 1e-3) through
    `trainval.TrainVal`: one step on the kernels against one on the plain
    versions (loss, every gradient, the new BN moments), the kernel
-   launches of one step, five steps on one batch (finite, falling
+   launches of one step (kernel C's by shape, which with phase 3's times
+   give its ms per step), five steps on one batch (finite, falling
    losses), step time and events/s, and peak memory under "stage_dots"
    and under "none";
 5. holds kernels D (the halo extend) and E (its transpose) against their
@@ -40,7 +45,12 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
 7. drives config-4 training with `USE_FUSED = False`: one step against
    the fused kernel step (and each gradient against the plain f32 step's
    bf16 noise), the launches of kernels D and E in one step, step time and
-   peak memory under "stage_dots" and "none".
+   peak memory under "stage_dots" and "none";
+8. drives config 3 and 4 at `uresnet_filters=12`, whose widths 12, 36 and
+   60 kernels B and C refuse, so that the tile conv's shape rule sends
+   those convs to the unfused path: one forward (batch 2) and one training
+   step (batch 1), each held to the plain path at phase 2's and phase 4's
+   bounds, with the exact launches of kernels B-E.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -271,10 +281,17 @@ def check_dw(name, level, t, cin, cout, rng, device):
     """Kernel C vs its plain version on one level's real halo maps:
     max|err| <= DW_RTOL * max|ref|. Returns (max_abs_err, kernel ms, plain
     ms, bound ms, bound by)."""
+    from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import (
-        halo_conv_dw, halo_conv_dw_plain)
+        dw_plan, halo_conv_dw, halo_conv_dw_plain)
     B, T = level.keys.shape
     cells = t ** 3
+    v = cuda.library().halo_conv_dw_plan(T, t, 3, cin, cout)
+    plan = (v >> 16, (v >> 8) & 255, (v >> 4) & 15, v & 15)
+    want = dw_plan(t, 3, cin, cout)
+    require(want is not None and plan == tuple(want),
+            f"halo_conv_dw {name}: the kernel plans (cs, tiles, wm, mw) "
+            f"{plan}, ops/cuda/halo_conv_dw.py:dw_plan {want}")
     live = level.halo.blive[..., None, None].cpu().numpy()
     x = rng.standard_normal((B, T, cells, cin), dtype=np.float32) * live
     g = rng.standard_normal((B, T, cells, cout), dtype=np.float32) * live
@@ -297,7 +314,8 @@ def check_dw(name, level, t, cin, cout, rng, device):
               + got.numel() * 4)
     bound_ms, by = bound(2 * 27 * cin * cout * n_live * cells, nbytes)
     print(f"halo_conv_dw {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {bound_ms:.4f} ms ({by})")
+          f"ms, bound {bound_ms:.4f} ms ({by}); plan (Cout slice, tiles a "
+          f"chunk, warp groups, M tiles a warp) {plan}")
     return err, ms, plain_ms, bound_ms, by
 
 
@@ -427,6 +445,89 @@ def check_extend(name, level, t, c, dtype, gen, device):
     return out
 
 
+def compare_logits(got, ref, valid, what: str) -> None:
+    """Phase 2's bound: p99 rel < 5e-2, p99.9 < 0.15, argmax agreement >
+    0.995 over the valid voxels (tests/test_tpu_gated.py:134-146)."""
+    got, ref = got[valid], ref[valid]
+    rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).flatten()
+    q99 = float(torch.quantile(rel, 0.99))
+    q999 = float(torch.quantile(rel, 0.999))
+    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
+    print(f"{what} over {int(valid.sum())} voxels: p99 rel {q99:.3e}, p99.9 "
+          f"rel {q999:.3e}, max abs {float((got - ref).abs().max()):.3e}, "
+          f"argmax agreement {agree:.5f}")
+    require(q99 < 5e-2 and q999 < 0.15 and agree > 0.995,
+            f"{what}: logits disagree")
+
+
+def compare_step(cfg, variables, blob, counts, what: str) -> None:
+    """Phase 4's bounds: one train step on the kernels (whatever path the
+    tile conv takes) against one on the plain versions from the same
+    variables: loss within 1e-2, the whole gradient at cosine >= 0.99 and
+    |delta|/|ref| <= 5e-2, each leaf within the bf16 noise, the running
+    moments within 1e-2; the plain step launches no kernel."""
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+
+    def fresh(c):
+        tv = TrainVal(c)
+        tv.initialize(variables)
+        return tv
+
+    loss_k, grads_k, stats_k = grads_and_stats(fresh(cfg), blob)
+    before = counts()
+    with plain_versions():
+        loss_p, grads_p, stats_p = grads_and_stats(fresh(cfg), blob)
+        # the same step in f32 (plain only: the kernels take bf16), to
+        # measure how far bf16 rounding alone moves each gradient
+        _, grads_f, _ = grads_and_stats(
+            fresh(dataclasses.replace(cfg, compute_dtype="float32")), blob)
+    torch.cuda.synchronize()
+    require(counts() == before, "the plain-path step launched a kernel")
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"{what} train step: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {rel_loss:.3e})")
+    require(rel_loss <= 1e-2, f"{what}: losses disagree")
+    names = sorted(grads_p)
+    flat = [torch.cat([g[n].flatten() for n in names])
+            for g in (grads_k, grads_p, grads_f)]
+    g_cos, g_rel = cos_rel(flat[0], flat[1])
+    print(f"whole gradient ({flat[0].numel()} values), {what}: "
+          f"cosine {g_cos:.6f}, |delta|/|ref| {g_rel:.3e}; cosine to the "
+          f"f32 step: plain bf16 {cos_rel(flat[1], flat[2])[0]:.6f}, "
+          f"kernel {cos_rel(flat[0], flat[2])[0]:.6f}")
+    require(g_cos >= 0.99 and g_rel <= 5e-2,
+            f"{what}: the gradient disagrees")
+    # per leaf: the kernel path (bf16, f32 sums in the kernels' order) may
+    # sit as far from the plain bf16 path as bf16 rounding moves that
+    # leaf, measured as the plain bf16 path's distance to the f32 step
+    # (PERF.md: deep BN leaves reach cosine 0.74 there)
+    worst, noisiest = [], []
+    for n in names:
+        k_cos, k_rel = cos_rel(grads_k[n], grads_p[n])
+        f_cos, f_rel = cos_rel(grads_p[n], grads_f[n])
+        worst.append((k_rel - 1.5 * f_rel, n, k_cos, k_rel, f_cos, f_rel))
+        noisiest.append((f_cos, n, k_cos, cos_rel(grads_k[n], grads_f[n])[0]))
+        require(k_rel <= 1.5 * f_rel + 0.05,
+                f"gradient of {n}: kernel vs plain |delta|/|ref| {k_rel:.3e}"
+                f" beyond the bf16 noise (plain bf16 vs f32 {f_rel:.3e})")
+    worst.sort(reverse=True)
+    for _, n, k_cos, k_rel, f_cos, f_rel in worst[:3]:
+        print(f"  closest to the bound: {n}: kernel vs plain cosine "
+              f"{k_cos:.5f}, |delta|/|ref| {k_rel:.3e}; plain bf16 vs f32 "
+              f"cosine {f_cos:.5f}, |delta|/|ref| {f_rel:.3e}")
+    for f_cos, n, k_cos, kf_cos in sorted(noisiest)[:4]:
+        print(f"  most moved by bf16: {n}: cosine plain bf16 vs f32 "
+              f"{f_cos:.5f}, kernel vs f32 {kf_cos:.5f}, kernel vs plain "
+              f"bf16 {k_cos:.5f}")
+    worst_stat = 0.0
+    for n, sp in stats_p.items():
+        d = float(((stats_k[n] - sp).abs() / sp.abs().clamp(min=1.0)).max())
+        require(d <= 1e-2, f"batch stat {n} differs by {d:.3e}")
+        worst_stat = max(worst_stat, d)
+    print(f"{len(names)} gradients within the bf16 noise; {len(stats_p)} "
+          f"running moments, worst rel {worst_stat:.3e}")
+
+
 def cos_rel(a, b):
     """(cosine, |a - b| / |b|) of two gradients."""
     a, b = a.flatten().double(), b.flatten().double()
@@ -467,7 +568,9 @@ def timed_steps(tv, blob, warm: int, timed: int):
 def profile_run(fn, what: str, top: int = 12) -> None:
     """torch.profiler over one call of fn: device time by kernel, summed
     by kind, and the device's busy share of the call's wall time. Only
-    device-side rows count (an operator's row repeats its kernels' time)."""
+    device-side kernel rows count: an operator's row repeats its kernels'
+    time, and a user annotation's device row (`Optimizer.step#Adam.step`)
+    spans its kernels and the gaps between them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -479,6 +582,7 @@ def profile_run(fn, what: str, top: int = 12) -> None:
     rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation
                    and e.self_device_time_total > 0), reverse=True)
     kinds = {"kernel B": 0.0, "kernel C": 0.0, "kernel A": 0.0,
              "kernel D": 0.0, "kernel E": 0.0, "cuDNN convs": 0.0,
@@ -530,6 +634,7 @@ def main() -> int:
     def reset_counts():
         for m, attr in counters.values():
             setattr(m, attr, 0)
+        dw_mod.launches_by_shape.clear()
 
     def counts():
         return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
@@ -640,19 +745,8 @@ def main() -> int:
     print(f"plain-path forward: {start.elapsed_time(end):.1f} ms")
     require(counts() == infer_launches,
             "the plain-path forward launched a kernel")
-    valid = ~pad
-    got, ref = logits[valid], ref[valid]
-    rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).flatten()
-    q99 = float(torch.quantile(rel, 0.99))
-    q999 = float(torch.quantile(rel, 0.999))
-    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"kernel vs plain logits over {int(valid.sum())} voxels: p99 rel "
-          f"{q99:.3e}, p99.9 rel {q999:.3e}, max abs "
-          f"{float((got - ref).abs().max()):.3e}, argmax agreement "
-          f"{agree:.5f}")
-    require(q99 < 5e-2 and q999 < 0.15 and agree > 0.995,
-            "kernel-path logits disagree with the plain path")
-    del model, logits, ref, got, coords, values, nv, pad, valid, rel
+    compare_logits(logits, ref, ~pad, "kernel vs plain logits")
+    del model, logits, ref, coords, values, nv, pad
     torch.cuda.empty_cache()
 
     # -- phase 3: the backward's kernels on config 4's halo maps -----------
@@ -667,8 +761,9 @@ def main() -> int:
     lv = graph.levels
     print("tile rows per level:", [tuple(l.keys.shape) for l in lv],
           "live:", [int(l.num.max()) for l in lv])
-    # each weight-gradient shape of the path; the decoder's first conv_a is
-    # a pair of two convs against the halves of its (2C, C) stack
+    # each weight-gradient shape of the step (the decoder's first conv_a
+    # runs as a pair of convs against the halves of its (2C, C) stack);
+    # its launches per step are counted in phase 4
     dw_shapes = [("stem L0 t=4 1->16", 0, 4, 1, 16),
                  ("L0 t=4 16->16", 0, 4, 16, 16),
                  ("L1 t=2 32->32", 1, 2, 32, 32),
@@ -677,6 +772,28 @@ def main() -> int:
                  ("L4 t=2 80->80", 4, 2, 80, 80)]
     dw_res = {name: check_dw(name, lv[l], t, ci, co, rng, device)
               for name, l, t, ci, co in dw_shapes}
+    print("halo_conv_dw per shape (ms): " + "; ".join(
+        f"{name} {dw_res[name][1]:.3f}" for name, *_ in dw_shapes))
+    # branches of kernels B and C that the step above does not reach but
+    # that the shape rule sends them at other widths and tile sizes
+    # (uresnet_filters=32 and width_ramp="geometric": L3 128->128, two Cout
+    # slices; tile_size=8: chunks of one 512-cell tile), and C's packed
+    # path with 16-byte staging (1 < Cin < 16, Cin a multiple of 8)
+    cfg8 = dataclasses.replace(cfg4, tile_size=8, tile_sizes=None)
+    with torch.no_grad():
+        lv8 = build_tile_graph(
+            *(torch.from_numpy(blob[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), cfg8).levels
+    dw_branch = {name: check_dw(name, level, t, ci, co, rng, device)
+                 for name, level, t, ci, co in (
+                     ("L3 t=2 128->128", lv[3], 2, 128, 128),
+                     ("L0 t=4 8->8", lv[0], 4, 8, 8),
+                     ("tile_size=8 L0 t=8 16->16", lv8[0], 8, 16, 16))}
+    b_branch = {name: check_halo_conv(name, level, t, ci, co, rng, device)
+                for name, level, t, ci, co in (
+                    ("L3 t=2 128->128", lv[3], 2, 128, 128),
+                    ("tile_size=8 L0 t=8 16->16", lv8[0], 8, 16, 16))}
+    del lv8
     dx_res = {"d_x L0 t=4 16->16": check_dx("L0 t=4 16->16", lv[0], 4, 16,
                                             rng, device),
               "d_x L4 t=2 80->80": check_dx("L4 t=2 80->80", lv[4], 2, 80,
@@ -685,74 +802,29 @@ def main() -> int:
 
     # -- phase 4: config-4 training through TrainVal -----------------------
     variables = init_params(cfg4, torch.Generator().manual_seed(cfg4.seed))
-    tv = TrainVal(cfg4)
-    tv.initialize(variables)
-    loss_k, grads_k, stats_k = grads_and_stats(tv, blob)
-    before = counts()
-    tv_plain = TrainVal(cfg4)
-    tv_plain.initialize(variables)
-    with plain_versions():
-        loss_p, grads_p, stats_p = grads_and_stats(tv_plain, blob)
-        # the same step in f32 (plain only: the kernels take bf16), to
-        # measure how far bf16 rounding alone moves each gradient
-        tv_plain = TrainVal(dataclasses.replace(cfg4,
-                                                compute_dtype="float32"))
-        tv_plain.initialize(variables)
-        _, grads_f, _ = grads_and_stats(tv_plain, blob)
-    torch.cuda.synchronize()
-    require(counts() == before, "the plain-path step launched a kernel")
-    del tv_plain
-    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
-    print(f"kernel vs plain train step: loss {loss_k:.6f} vs {loss_p:.6f} "
-          f"(rel {rel_loss:.3e})")
-    require(rel_loss <= 1e-2, "kernel and plain losses disagree")
-    names = sorted(grads_p)
-    flat = [torch.cat([g[n].flatten() for n in names])
-            for g in (grads_k, grads_p, grads_f)]
-    g_cos, g_rel = cos_rel(flat[0], flat[1])
-    print(f"whole gradient ({flat[0].numel()} values), kernel vs plain: "
-          f"cosine {g_cos:.6f}, |delta|/|ref| {g_rel:.3e}; cosine to the "
-          f"f32 step: plain bf16 {cos_rel(flat[1], flat[2])[0]:.6f}, "
-          f"kernel {cos_rel(flat[0], flat[2])[0]:.6f}")
-    require(g_cos >= 0.99 and g_rel <= 5e-2,
-            "kernel-path gradient disagrees with the plain path")
-    # per leaf: the kernel path (bf16, f32 sums in the kernels' order) may
-    # sit as far from the plain bf16 path as bf16 rounding moves that
-    # leaf, measured as the plain bf16 path's distance to the f32 step
-    # (PERF.md: deep BN leaves reach cosine 0.74 there)
-    worst, noisiest = [], []
-    for n in names:
-        k_cos, k_rel = cos_rel(grads_k[n], grads_p[n])
-        f_cos, f_rel = cos_rel(grads_p[n], grads_f[n])
-        worst.append((k_rel - 1.5 * f_rel, n, k_cos, k_rel, f_cos, f_rel))
-        noisiest.append((f_cos, n, k_cos, cos_rel(grads_k[n], grads_f[n])[0]))
-        require(k_rel <= 1.5 * f_rel + 0.05,
-                f"gradient of {n}: kernel vs plain |delta|/|ref| {k_rel:.3e}"
-                f" beyond the bf16 noise (plain bf16 vs f32 {f_rel:.3e})")
-    worst.sort(reverse=True)
-    for _, n, k_cos, k_rel, f_cos, f_rel in worst[:3]:
-        print(f"  closest to the bound: {n}: kernel vs plain cosine "
-              f"{k_cos:.5f}, |delta|/|ref| {k_rel:.3e}; plain bf16 vs f32 "
-              f"cosine {f_cos:.5f}, |delta|/|ref| {f_rel:.3e}")
-    for f_cos, n, k_cos, kf_cos in sorted(noisiest)[:4]:
-        print(f"  most moved by bf16: {n}: cosine plain bf16 vs f32 "
-              f"{f_cos:.5f}, kernel vs f32 {kf_cos:.5f}, kernel vs plain "
-              f"bf16 {k_cos:.5f}")
-    worst_stat = 0.0
-    for n, sp in stats_p.items():
-        d = float(((stats_k[n] - sp).abs() / sp.abs().clamp(min=1.0)).max())
-        require(d <= 1e-2, f"batch stat {n} differs by {d:.3e}")
-        worst_stat = max(worst_stat, d)
-    print(f"{len(names)} gradients within the bf16 noise; {len(stats_p)} "
-          f"running moments, worst rel {worst_stat:.3e}")
-    del grads_k, grads_p, grads_f, stats_k, stats_p, flat
+    compare_step(cfg4, variables, blob, counts, "kernel vs plain")
 
+    tv = TrainVal(cfg4)
     tv.initialize(variables)
     torch.cuda.synchronize()
     reset_counts()
     losses, _, _ = timed_steps(tv, blob, 1, 0)
     train_launches = counts()
+    dw_launches = dict(dw_mod.launches_by_shape)
     print(f"launches in one stage_dots step: {train_launches}")
+    # kernel C's launches of that step by shape, as its wrapper counted
+    # them: every shape timed in phase 3, and only those
+    require(set(dw_launches) == {(t, ci, co) for _, _, t, ci, co
+                                 in dw_shapes},
+            f"kernel C launched at (t, Cin, Cout) {sorted(dw_launches)} in "
+            f"the step, phase 3 timed {[s[2:] for s in dw_shapes]}")
+    dw_per_step = {name: dw_launches[(t, ci, co)]
+                   for name, _, t, ci, co in dw_shapes}
+    dw_step_ms = sum(dw_res[name][1] * n for name, n in dw_per_step.items())
+    print("halo_conv_dw per shape (ms x launches counted in the step): "
+          + "; ".join(f"{name} {dw_res[name][1]:.3f} x {n}"
+                      for name, n in dw_per_step.items())
+          + f"; sum {dw_step_ms:.3f} ms per config-4 step")
     require(train_launches["halo_conv"] == 81,
             f"expected 81 halo_conv launches per step (41 forward + 40 "
             f"d_x), got {train_launches['halo_conv']}")
@@ -858,23 +930,13 @@ def main() -> int:
             and bool(torch.isfinite(logits).all())
             and bool((logits[~valid] == 0).all()),
             "unfused logits: wrong shape, non-finite or nonzero padding")
-    got, ref = logits[valid], ref[valid]
-    rel = ((got - ref).abs() / ref.abs().clamp(min=1.0)).flatten()
-    q99 = float(torch.quantile(rel, 0.99))
-    q999 = float(torch.quantile(rel, 0.999))
-    agree = float((got.argmax(-1) == ref.argmax(-1)).float().mean())
-    print(f"unfused vs fused kernel logits over {int(valid.sum())} voxels: "
-          f"p99 rel {q99:.3e}, p99.9 rel {q999:.3e}, max abs "
-          f"{float((got - ref).abs().max()):.3e}, argmax agreement "
-          f"{agree:.5f}")
-    require(q99 < 5e-2 and q999 < 0.15 and agree > 0.995,
-            "unfused logits disagree with the fused kernel path")
+    compare_logits(logits, ref, valid, "unfused vs fused kernel logits")
     ms_unfused = sorted(times)[1]
     print(f"unfused forward (graph build included), 3 runs: "
           f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
           f"{ms_unfused:.1f} ms = {BATCH / (ms_unfused / 1e3):.2f} events/s; "
           f"peak memory {peak_unfused / 2**30:.2f} GiB")
-    del model, logits, ref, got, rel
+    del model, logits, ref
     torch.cuda.empty_cache()
 
     # float32 on the auto path: kernel B takes bf16 only, so the card runs
@@ -1002,14 +1064,66 @@ def main() -> int:
               f"memory {peak_u_none / 2**30:.2f} GiB")
         del tv
 
+    # -- phase 8: uresnet_filters=12, where the shape rule mixes the paths -
+    print(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
+    # widths 12, 24, 36, 48, 60: kernels B and C take Cout 24 and 48 only,
+    # so the convs of 12, 36 and 60 output channels take the unfused path
+    cfg12 = dataclasses.replace(cfg, uresnet_filters=12)
+    blob12 = event_blob(cfg12, 2)
+    coords, values, nv = (torch.from_numpy(blob12[k]).to(device)
+                          for k in ("coords", "values", "n_voxels"))
+    model = construct("uresnet_sparse")(cfg12)
+    load_jax_variables(model, init_params(
+        cfg12, torch.Generator().manual_seed(SEED)))
+    with torch.no_grad():
+        reset_counts()
+        logits, diag = model(coords, values, nv)
+        torch.cuda.synchronize()
+        f12_infer = counts()
+        with plain_versions():
+            ref, _ = model(coords, values, nv)
+        torch.cuda.synchronize()
+    print(f"launches in one uresnet_filters=12 forward (batch 2): "
+          f"{f12_infer}")
+    require(counts() == f12_infer, "the plain-path forward launched a kernel")
+    require(f12_infer["halo_conv"] == 16 and f12_infer["halo26_fwd"] == 21,
+            "expected 16 fused and 21 unfused convs in the filters=12 "
+            "forward")
+    valid = torch.arange(cfg12.max_voxels, device=device)[None] < nv[:, None]
+    require(int(diag["overflow"]) == 0 and bool(torch.isfinite(logits).all())
+            and bool((logits[~valid] == 0).all()),
+            "filters=12 logits: overflow, non-finite or nonzero padding")
+    compare_logits(logits, ref, valid, "filters=12 kernel vs plain logits")
+    del model, logits, ref, coords, values, nv, valid
+    cfg12_4 = dataclasses.replace(cfg4, uresnet_filters=12, batch_size=1)
+    reset_counts()
+    compare_step(cfg12_4, init_params(
+        cfg12_4, torch.Generator().manual_seed(cfg4.seed)),
+        event_blob(cfg12_4, 1), counts, "filters=12 kernel vs plain")
+    f12_train = counts()
+    print(f"launches in one uresnet_filters=12 stage_dots step (batch 1): "
+          f"{f12_train}")
+    require((f12_train["halo_conv"], f12_train["halo_conv_dw"],
+             f12_train["halo26_fwd"], f12_train["halo26_bwd"])
+            == (36, 18, 45, 22),
+            "expected B 36 (18 forward + 18 d_x), C 18, D 45 (23 forward + "
+            "22 recomputed) and E 22 launches in the filters=12 step")
+    torch.cuda.empty_cache()
+
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
              "unfused_inference_3_forwards": unfused_launches,
              "f32_inference_forward": f32_launches,
-             "unfused_training_step": unfused_train}
+             "unfused_training_step": unfused_train,
+             "filters12_forward": f12_infer,
+             "filters12_training_step": f12_train}
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
+
+    def branch_checks(res):
+        return {k: {"max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
+                    "bound_ms": r[3]} for k, r in res.items()}
 
     dw0 = dw_res["L0 t=4 16->16"]
     b0 = halo_res["L0 t=4 16->16"]
@@ -1024,11 +1138,13 @@ def main() -> int:
          "launches": train_launches["halo_conv"],
          "launches_by_path": by_path("halo_conv"),
          "max_abs_err": max(r[0] for r in (*halo_res.values(),
-                                           *dx_res.values())),
+                                           *dx_res.values(),
+                                           *b_branch.values())),
          "ms": b0[1], "plain_ms": b0[2], "bound_ms": b0[3],
          "bound_by": b0[4], "library_ms": None,
          "ms_by_shape": {k: r[1] for k, r in (*halo_res.items(),
-                                              *dx_res.items())}},
+                                              *dx_res.items())},
+         "branch_checks": branch_checks(b_branch)},
         {"name": "halo_conv_dw", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/halo_conv_dw.cu",
          "replaces": "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1175",
@@ -1036,10 +1152,18 @@ def main() -> int:
                            "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1259"],
          "launches": train_launches["halo_conv_dw"],
          "launches_by_path": by_path("halo_conv_dw"),
-         "max_abs_err": max(r[0] for r in dw_res.values()),
+         "max_abs_err": max(r[0] for r in (*dw_res.values(),
+                                           *dw_branch.values())),
          "ms": dw0[1], "plain_ms": dw0[2], "bound_ms": dw0[3],
          "bound_by": dw0[4], "library_ms": None,
-         "ms_by_shape": {k: r[1] for k, r in dw_res.items()}},
+         "ms_by_shape": {k: r[1] for k, r in dw_res.items()},
+         "by_shape": {name: {"ms": dw_res[name][1],
+                             "plain_ms": dw_res[name][2],
+                             "bound_ms": dw_res[name][3],
+                             "launches": n}
+                      for name, n in dw_per_step.items()},
+         "ms_per_step": dw_step_ms,
+         "branch_checks": branch_checks(dw_branch)},
         {"name": "windowed_gather", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/windowed_gather.cu",
          "replaces":

@@ -9,8 +9,11 @@ d_W by kernel C's function) through `torch.autograd.grad` against the
 reference's combined backward `_bwd_impl` in interpret mode, the channel
 concat pair against autodiff of the reference's pair conv, and an input
 that needs no gradient (the stem) skips the d_x conv. All f32, at 1e-4
-(the bound of tests/test_halo_conv_fused.py). The CUDA kernel itself is
-held to this plain version on the card by chip_smoke.py."""
+(the bound of tests/test_halo_conv_fused.py). The kernel's plan
+(`dw_plan`, mirrored from its C code) is held to the plain version by
+rebuilding d_W in torch slice by slice and warp by warp as the plan splits
+it, and the wrapper's refusals to the kernel's limits. The CUDA kernel
+itself is held to this plain version on the card by chip_smoke.py."""
 
 from unittest import mock
 
@@ -21,10 +24,13 @@ import pytest
 import torch
 
 from tests.test_torch_halo_conv import _case, _j_oracle, _specs
+from tests.test_torch_halo_extend import _OnCard
 from uresnet_pytorch_tpu.ops.pallas.halo_conv import _bwd_impl, _dw_impl
 from uresnet_pytorch_tpu_torch.ops import tile_conv
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as hcdw
+from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, body_cells,
+                                                halo26_extend)
 
 
 def _dw_case(t, Cin, Cout, seed):
@@ -141,8 +147,96 @@ def test_input_without_grad_skips_the_dx_conv():
 
 
 def test_dw_wrapper_refuses_what_the_kernel_cannot_take():
+    """The kernel's limits, from `dw_plan`: Cout a multiple of 8 up to 128
+    and a plan (whole tiles in 16-cell depth steps). A tensor off the CPU
+    goes to the kernel, which raises on them; nothing falls back."""
     keys, x, g, _ = _dw_case(4, 8, 8, seed=2)
     _, spec = _specs(keys)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
     with pytest.raises(ValueError, match="unsupported device"):
         hcdw._check(xt, gt, spec, 4, 3)
+    card = Halo26Spec(*(v.as_subclass(_OnCard) for v in spec[:3]), None)
+    x16 = xt.to(torch.bfloat16).as_subclass(_OnCard)
+    for cout in (12, 136):
+        g16 = torch.zeros(x.shape[:3] + (cout,),
+                          dtype=torch.bfloat16).as_subclass(_OnCard)
+        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
+            hcdw._check(x16, g16, card, 4, 3)
+    assert hcdw.dw_plan(3, 3, 8, 8) is None                  # 27 cells
+    assert hcdw.dw_plan(4, 3, 1, 128) is not None
+    assert hcdw.dw_plan(8, 3, 128, 128) is not None
+    hcdw._check(x16, gt.to(torch.bfloat16).as_subclass(_OnCard), card, 4, 3)
+
+
+def _dw_by_plan(x, g, spec, t, plan):
+    """d_W (f64) summed exactly as `dw_plan` splits it: per Cin slice of
+    16 (or all of Cin, packed) and Cout slice of plan.cs, per warp w of 9
+    (group w % wm with its M tiles, phase w // wm with every (9 / wm)-th
+    16-cell depth step of the chunks in order), per M tile: an offset over
+    the slice's 16 channels, or 16 packed (offset, channel) rows k * Cin +
+    c, the padded ones (reading a real cell) dropped before the add."""
+    B, T, cells, Cin = x.shape
+    Cout, dim, K, E = g.shape[-1], 3, 27, t + 2
+    per_event = -(-T // plan.tiles)
+    pad = per_event * plan.tiles - T        # tiles past T: zero g
+    ext = halo26_extend(x, spec, t, dim)
+    ext = torch.cat([ext, ext.new_zeros(B, pad, E ** dim, Cin)], 1)
+    g = g * spec.blive[:, :, None, None]
+    g = torch.cat([g, g.new_zeros(B, pad, cells, Cout)], 1)
+    ext, g = ext.reshape(-1, E ** dim, Cin), g.reshape(-1, Cout)
+    n = g.shape[0]
+    tile = torch.arange(n) // cells
+    erow = torch.as_tensor(body_cells(t, dim))[torch.arange(n) % cells]
+    shift = torch.tensor([sum(((k // 3 ** a) % 3 - 1) * E ** a
+                              for a in range(dim)) for k in range(K)])
+    packed = Cin < 16
+    mtiles = -(-K * Cin // 16) if packed else K
+    r = torch.arange(16)
+    dw = torch.zeros(K * Cin, Cout, dtype=torch.float64)
+    for c_lo in [0] if packed else range(0, Cin, 16):
+        for co in range(0, Cout, plan.cs):
+            for w in range(9):
+                grp, ph = w % plan.wm, w // plan.wm
+                cells_w = (torch.arange(n) // 16) % (9 // plan.wm) == ph
+                for i in range(plan.mw):
+                    mt = grp + i * plan.wm
+                    if mt >= mtiles:
+                        continue
+                    if packed:
+                        rows = mt * 16 + r
+                        k, c = (rows // Cin).clamp(max=K - 1), rows % Cin
+                        off = torch.where(rows < K * Cin, shift[k], 0)
+                        c = torch.where(rows < K * Cin, c, 0)
+                    else:
+                        c = c_lo + r
+                        rows = mt * Cin + c
+                        off, c = shift[mt].expand(16), c.clamp(max=Cin - 1)
+                    a = ext[tile[cells_w][None],
+                            erow[cells_w][None] + off[:, None], c[:, None]]
+                    acc = a @ g[cells_w, co:co + plan.cs]
+                    keep = rows < K * Cin if packed else c_lo + r < Cin
+                    dw[rows[keep], co:co + plan.cs] += acc[keep]
+    return dw.reshape(K, Cin, Cout)
+
+
+@pytest.mark.parametrize("t,Cin,Cout,plan", [
+    pytest.param(4, 1, 16, (16, 4, 1, 2), id="stem-packed"),
+    pytest.param(4, 16, 16, (16, 4, 9, 3), id="L0"),
+    pytest.param(2, 80, 80, (80, 32, 9, 3), id="L4-five-Cin-slices"),
+    pytest.param(4, 12, 16, (16, 4, 9, 3), id="packed-12-idle-tiles"),
+    pytest.param(2, 128, 128, (64, 32, 9, 3), id="two-Cout-slices"),
+])
+def test_dw_plan_rebuilds_the_gradient(t, Cin, Cout, plan):
+    """The counterpart of test_kernel_weights_rebuild_the_conv: d_W
+    rebuilt in torch as the kernel's plan splits it (Cin and Cout slices,
+    offsets per warp, depth phases, the packed stem's rows) equals the
+    plain version, so the plan covers every output once."""
+    keys, x, g, _ = _dw_case(t, Cin, Cout, seed=t + Cin + Cout)
+    _, spec = _specs(keys)
+    assert tuple(hcdw.dw_plan(t, 3, Cin, Cout)) == plan
+    xt, gt = torch.from_numpy(x), torch.from_numpy(g)
+    ref = hcdw.halo_conv_dw_plain(xt, gt, spec, t, 3).double()
+    got = _dw_by_plan(xt.double(), gt.double(), spec, t,
+                      hcdw.dw_plan(t, 3, Cin, Cout))
+    torch.testing.assert_close(got, ref, rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))

@@ -5,7 +5,12 @@ which take the reference's unfused XLA path (halo26_extend + one VALID
 lax.conv). f32 outputs agree to rtol 1e-5, gradients (through kernel E's
 plain version) to `jax.vjp` at 1e-4. Also pins the auto rule: on the card
 float32 takes the unfused path and bfloat16 kernel B, by patching the
-wrappers (a CPU tensor that reports a CUDA device)."""
+wrappers (a CPU tensor that reports a CUDA device); and the shape rule:
+each conv of the model takes the fused path only where kernels B and C
+take its widths, decided as on the card for bfloat16, with a
+uresnet_filters=12 forward and train step through it against the
+reference's f32 XLA path at the bounds of tests/test_torch_model.py and
+tests/test_torch_train.py."""
 
 from unittest import mock
 
@@ -124,3 +129,159 @@ def test_auto_rule_picks_the_path(dtype, on_card, fused):
             torch.from_numpy(mask))
     assert (op.call_count, conv.call_count) == ((1, 1) if fused else (0, 0))
     assert extend.call_count == (0 if fused else 2)
+
+
+def _card_rule(monkeypatch):
+    """`ttc._fused` deciding every conv as it would for a bfloat16 tensor
+    on the card, recording (dx, dw, Cin, Cout, fused) per call; the CPU
+    then runs the chosen path's plain versions."""
+    calls = []
+    rule = ttc._fused
+
+    def on_card(x, t, dim, Cout, dx=False, dw=False):
+        card = torch.empty(0, x.shape[-1],
+                           dtype=torch.bfloat16).as_subclass(_OnCard)
+        fused = rule(card, t, dim, Cout, dx, dw)
+        calls.append((dx, dw, x.shape[-1], Cout, fused))
+        return fused
+    monkeypatch.setattr(ttc, "_fused", on_card)
+    return calls
+
+
+def _rule_cfg(**kw):
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
+    base = dict(num_class=5, uresnet_filters=16, uresnet_num_strides=5,
+                spatial_size=64, data_dim=3, reps=1, max_voxels=512,
+                min_level_capacity=64, tile_size=4, min_tiles=64,
+                tile_sizes=(4, 2, 2, 2, 2), compute_dtype="float32")
+    base.update(kw)
+    return TConfig(**base)
+
+
+# (config, which (Cin, Cout) convs the card must send to the unfused path
+# in eval and in training); every other conv stays fused
+RULE_CASES = [
+    pytest.param({}, set(), set(), id="config3-4-widths"),
+    pytest.param({"uresnet_filters": 12},
+                 {(1, 12), (12, 12), (36, 36), (60, 60), (72, 36), (24, 12)},
+                 {(1, 12), (12, 12), (36, 36), (60, 60)}, id="filters12"),
+    pytest.param({"width_ramp": "geometric"}, {(256, 256)}, {(256, 256)},
+                 id="geometric"),
+    pytest.param({"uresnet_filters": 32}, {(160, 160)}, {(160, 160)},
+                 id="filters32"),
+    pytest.param({"tile_size": 8, "tile_sizes": None},
+                 {(96, 48), (128, 64)}, set(), id="tile8"),
+]
+
+
+@pytest.mark.parametrize("kw,eval_unfused,train_unfused", RULE_CASES)
+def test_shape_rule_picks_the_path_per_conv(monkeypatch, kw, eval_unfused,
+                                            train_unfused):
+    """Every conv of one eval forward and one training forward/backward of
+    the model, decided as on the card for bfloat16: the fused path exactly
+    where kernel B takes the conv and, in training, kernel C its d_W and
+    kernel B its d_x (the stem needs none), else the unfused one. The
+    benchmark configs (m=16, linear widths, tiles (4,2,2,2,2)) stay fused
+    throughout; the ROADMAP's failing widths go unfused."""
+    from tests.test_torch_model import _events
+    from uresnet_pytorch_tpu_torch.models import construct
+    cfg = _rule_cfg(**kw)
+    calls = _card_rule(monkeypatch)
+    model = construct("uresnet_sparse")(cfg, torch.Generator().manual_seed(0),
+                                        device="cpu")
+    args = [torch.from_numpy(a) for a in _events(cfg, B=1)]
+    with torch.no_grad():
+        model(*args)
+    n_eval = len(calls)
+    logits, _ = model(*args, train=True)
+    logits.square().sum().backward()
+    assert n_eval > 0 and len(calls) > n_eval
+    # eval asks for no gradient; training for d_W everywhere and d_x
+    # everywhere but the stem (the first conv, Cin 1)
+    assert not any(dx or dw for dx, dw, *_ in calls[:n_eval])
+    assert [(dx, dw) for dx, dw, *_ in calls[n_eval:]] == \
+        [(False, True)] + [(True, True)] * (len(calls) - n_eval - 1)
+    for calls_of, want in ((calls[:n_eval], eval_unfused),
+                           (calls[n_eval:], train_unfused)):
+        got = {(ci, co) for _, _, ci, co, fused in calls_of if not fused}
+        assert got == want, sorted(got)
+
+
+@pytest.mark.parametrize("cin,cout,dx,dw,refuse_dw,use_fused,fused", [
+    (1, 16, False, True, False, None, True),     # the stem: no d_x
+    (1, 16, True, True, False, None, False),     # its d_x (16 -> 1) refused
+    (16, 16, True, True, True, None, False),     # kernel C refusing d_W
+    (16, 16, False, False, True, None, True),    # ... asked for no d_W
+    (16, 12, False, False, False, True, True),   # forced: the wrapper raises
+    (16, 16, False, False, False, False, False),
+])
+def test_rule_asks_the_gradients_kernels(monkeypatch, cin, cout, dx, dw,
+                                         refuse_dw, use_fused, fused):
+    """`_fused` on the card: kernel B's plan of the flipped shape where
+    x needs a gradient, kernel C's where w does; `USE_FUSED` overrides the
+    rule both ways."""
+    monkeypatch.setattr(ttc, "USE_FUSED", use_fused)
+    if refuse_dw:
+        monkeypatch.setattr(ttc, "dw_plan", lambda *a: None)
+    x = torch.empty(0, cin, dtype=torch.bfloat16).as_subclass(_OnCard)
+    assert ttc._fused(x, 4, 3, cout, dx=dx, dw=dw) is fused
+    if use_fused is None:     # float32 on the card: never fused
+        assert not ttc._fused(x.float(), 4, 3, cout, dx=dx, dw=dw)
+
+
+@pytest.fixture(scope="module")
+def filters12_case():
+    """uresnet_filters=12 (widths 12, 24, 36) at the small size of
+    tests/test_torch_model.py and tests/test_torch_train.py: variables,
+    events, the reference's f32 eval logits (its XLA path) and its f32
+    train step."""
+    from tests.test_torch_model import _events
+    from tests.test_torch_train import _blob, _reference_step, _variables
+    from tests.test_torch_train import _KW as TRAIN_KW
+    from uresnet_pytorch_tpu.config import URESNetConfig
+    from uresnet_pytorch_tpu.models import construct as j_construct
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
+    kw = {**TRAIN_KW, "uresnet_filters": 12}
+    tcfg = TConfig(compute_dtype="float32", **kw)
+    variables, args, blob = _variables(tcfg), _events(tcfg), _blob(tcfg)
+    model = j_construct("uresnet_sparse")(
+        URESNetConfig(compute_dtype="float32", **kw))
+    logits = jax.jit(model.apply, static_argnames=("train",))(
+        variables, *args, train=False)
+    step = _reference_step("float32", variables, blob, uresnet_filters=12)
+    return tcfg, variables, args, np.asarray(logits), blob, step
+
+
+def test_filters12_forward_through_the_rule(filters12_case, monkeypatch):
+    """One forward at uresnet_filters=12 with every conv on the path the
+    card would take (Cout 12 and 36 unfused, 24 fused), against the
+    reference's f32 logits at the bound of tests/test_torch_model.py."""
+    from tests.test_torch_model import _port
+    tcfg, variables, args, ref, _, _ = filters12_case
+    calls = _card_rule(monkeypatch)
+    out = _port(tcfg, variables, args)
+    assert {co for *_, co, fused in calls if not fused} == {12, 36}
+    assert {co for *_, co, fused in calls if fused} == {24}
+    np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_filters12_train_step_through_the_rule(filters12_case, monkeypatch):
+    """One train step at uresnet_filters=12 through the rule, against the
+    reference's f32 step at the bounds of tests/test_torch_train.py."""
+    from tests.test_torch_train import _port_step
+    _, variables, _, _, blob, (ref_loss, ref_grads, ref_stats) = \
+        filters12_case
+    calls = _card_rule(monkeypatch)
+    loss, grads, stats = _port_step("float32", variables, blob,
+                                    uresnet_filters=12)
+    assert {co for *_, co, fused in calls if not fused} == {12, 36}
+    assert {co for *_, co, fused in calls if fused} == {24}
+    np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
+    assert sorted(grads) == sorted(ref_grads)
+    for name, ref in ref_grads.items():
+        np.testing.assert_allclose(
+            grads[name], ref, rtol=1e-4,
+            atol=1e-4 * float(np.abs(ref).max()), err_msg=name)
+    for name, ref in ref_stats.items():
+        np.testing.assert_allclose(stats[name], ref, rtol=1e-5, atol=1e-5,
+                                   err_msg=name)

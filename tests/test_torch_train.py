@@ -86,10 +86,12 @@ def _flat(tree, prefix=""):
     return out
 
 
-def _reference_step(dtype, variables, blob, remat_mode="none"):
-    """(loss, grads, new batch stats) of the reference's train step. Its
-    remat mode changes no value and "none" compiles fastest."""
-    cfg = URESNetConfig(compute_dtype=dtype, remat_mode=remat_mode, **_KW)
+def _reference_step(dtype, variables, blob, remat_mode="none", **kw):
+    """(loss, grads, new batch stats) of the reference's train step (kw
+    overrides _KW). Its remat mode changes no value and "none" compiles
+    fastest."""
+    cfg = URESNetConfig(compute_dtype=dtype, remat_mode=remat_mode,
+                        **{**_KW, **kw})
     tv = JTrainVal(cfg)
     tv.model = j_construct("uresnet_sparse")(cfg)
     batch = {k: jnp.asarray(v) for k, v in blob.items()}
@@ -100,11 +102,11 @@ def _reference_step(dtype, variables, blob, remat_mode="none"):
     return float(loss), _flat(grads), _flat(stats)
 
 
-def _port_step(dtype, variables, blob, remat_mode="stage_dots"):
+def _port_step(dtype, variables, blob, remat_mode="stage_dots", **kw):
     """(loss, grads, new batch stats) of the port's train step, before
-    Adam."""
-    tv = TrainVal(TConfig(compute_dtype=dtype, remat_mode=remat_mode, **_KW),
-                  device="cpu")
+    Adam (kw overrides _KW)."""
+    tv = TrainVal(TConfig(compute_dtype=dtype, remat_mode=remat_mode,
+                          **{**_KW, **kw}), device="cpu")
     tv.initialize(variables)
     metrics = tv._metrics(tv._batch(blob), train=True)
     metrics["loss"].backward()

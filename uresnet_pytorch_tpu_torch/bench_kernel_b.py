@@ -1,24 +1,30 @@
-"""Times kernel B (the fused halo conv) of several source trees in turns on
-one card, at every shape the config-3 forward and the config-4 backward
-give it, and kernel A's link gathers beside `torch.gather`.
+"""Times kernel B (the fused halo conv) or kernel C (its weight gradient)
+of several source trees in turns on one card, at every shape the
+config-3 forward and the config-4 step give it, and kernel A's link
+gathers beside `torch.gather`.
 
     python -m uresnet_pytorch_tpu_torch.bench_kernel_b \
-        [--tree NAME=DIR ...] [--rounds 2] [--check NAME ...] [--gather]
-        [--out FILE]
+        [--tree NAME=DIR ...] [--rounds 2] [--check NAME ...] [--dw]
+        [--step] [--gather] [--out FILE]
 
 A tree is a directory holding a `uresnet_pytorch_tpu_torch` package (a
 checkout, or a copy of the package with an edited `csrc/`); `this` is the
 tree this module belongs to and is always timed. Each tree runs in a
 process of its own, which imports that tree's package, builds its kernels
-(all trees' builds start together) and times its `halo_conv` wrapper with
-CUDA events: the mean of 20 launches after 3 warm-ups, on random bf16
-inputs made from one seed, on the real halo maps of config 3 (batch 8)
-and config 4 (batch 2, d_x on flipped weights). The trees run in the
-order given and then in reverse, `rounds` times, so a drift of the card
-falls on every tree alike. `--check NAME` holds that tree's kernel to its
-plain version at every shape first (the bf16 bound of `chip_smoke.py`);
+(all trees' builds start together; a tree that does not build is
+reported, left out, and makes the run exit 1) and times its `halo_conv`
+wrapper with CUDA events: the mean of 20 launches after 3 warm-ups, on
+random bf16 inputs made from one seed, on the real halo maps of config 3
+(batch 8) and config 4 (batch 2, d_x on flipped weights). `--dw` times its
+`halo_conv_dw` wrapper instead, at the six weight-gradient shapes of a
+config-4 step. The trees run in the order given and then in reverse,
+`rounds` times, so a drift of the card falls on every tree alike.
+`--check NAME` holds that tree's kernel to its plain version at every
+shape first (the bounds of `chip_smoke.py`: bf16 for B, `DW_RTOL` for C);
 `--gather` also times kernel A against `torch.gather` on link 1, five
-times per process. The table goes to stdout and every timing, as JSON,
+times per process. `--step` instead profiles one config-4 training step
+per process (after two warm-ups; `torch.profiler`, device time by kernel
+name) and lists the kernels whose time differs most between the trees. The table goes to stdout and every timing, as JSON,
 to `--out` (default `build/bench_kernel_b.json`).
 """
 
@@ -43,6 +49,14 @@ SHAPES = [("L0 t=4 16->16", 3, 0, 4, 16, 16, False),
           ("L4 t=2 80->80", 3, 4, 2, 80, 80, False),
           ("d_x L0 t=4 16->16", 4, 0, 4, 16, 16, True),
           ("d_x L4 t=2 80->80", 4, 4, 2, 80, 80, True)]
+# kernel C on config 4's maps: name, level, t, Cin, Cout (the decoder's
+# first conv_a runs as a pair of convs against the halves of its stack)
+DW_SHAPES = [("stem L0 t=4 1->16", 0, 4, 1, 16),
+             ("L0 t=4 16->16", 0, 4, 16, 16),
+             ("L1 t=2 32->32", 1, 2, 32, 32),
+             ("L2 t=2 48->48", 2, 2, 48, 48),
+             ("dec pair half L3 t=2 64->64", 3, 2, 64, 64),
+             ("L4 t=2 80->80", 4, 2, 80, 80)]
 
 
 def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -78,6 +92,110 @@ def _inputs(level, t, cin, cout, seed):
                       mask=level.occ & level.halo.blive[..., None])
 
 
+def _config4_graph(device):
+    import torch
+
+    import chip_smoke
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    blob = chip_smoke.event_blob(chip_smoke.config4(), chip_smoke.BATCH4)
+    with torch.no_grad():
+        return build_tile_graph(
+            *(torch.from_numpy(blob[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), chip_smoke.config4())
+
+
+def worker_dw(check: bool) -> dict:
+    """Times this process's kernel C at DW_SHAPES on config 4's maps."""
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw
+    device = torch.device("cuda", 0)
+    graph = _config4_graph(device)
+    out = {"package": dw.__file__, "shapes": {}, "errors": {}}
+    for i, (name, lvl, t, cin, cout) in enumerate(DW_SHAPES):
+        level = graph.levels[lvl]
+        rng = np.random.default_rng(i)
+        B, T = level.keys.shape
+        live = level.halo.blive[..., None, None].cpu().numpy()
+        x, g = (torch.from_numpy(rng.standard_normal(
+            (B, T, t ** 3, c), dtype=np.float32) * live).to(
+                device, torch.bfloat16) for c in (cin, cout))
+
+        def run():
+            return dw.halo_conv_dw(x, g, level.halo, t, 3)
+        res = {}
+        try:
+            if check:
+                ref = dw.halo_conv_dw_plain(x, g, level.halo, t, 3)
+                err = float((run() - ref).abs().max())
+                res["dw_max_abs_err"] = err
+                res["dw_ok"] = err <= chip_smoke.DW_RTOL * float(
+                    ref.abs().max())
+            res["dw"] = _time_ms(run)
+        except RuntimeError as e:             # a variant that cannot launch
+            out["errors"][f"{name} dw"] = str(e)
+            res["dw"] = None
+        out["shapes"][name] = res
+    return out
+
+
+def worker_step() -> dict:
+    """Device ms and calls by kernel name in one profiled config-4 training
+    step of this process's package, after two warm-up steps. A user
+    annotation's device row (the optimizer's span, gaps included) is not
+    a kernel and is left out."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from uresnet_pytorch_tpu_torch import trainval
+    from uresnet_pytorch_tpu_torch.utils.weights import init_params
+    cfg = chip_smoke.config4()
+    blob = chip_smoke.event_blob(cfg, chip_smoke.BATCH4)
+    tv = trainval.TrainVal(cfg)
+    tv.initialize(init_params(cfg, torch.Generator().manual_seed(cfg.seed)))
+    for _ in range(2):
+        tv.train_step(blob)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tv.train_step(blob)
+        torch.cuda.synchronize()
+    rows = {e.key: [e.self_device_time_total / 1e3, e.count]
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.is_user_annotation
+            and e.self_device_time_total > 0}
+    return {"package": trainval.__file__, "kernels": rows}
+
+
+def _step_table(order: list, runs: dict, top: int = 15) -> dict:
+    """Prints each tree's device ms per step (median of its runs) and the
+    kernels whose median ms differs most from the first tree's; returns
+    the medians by tree and kernel."""
+    med = {}
+    for n in order:
+        keys = {k for r in runs[n] for k in r["kernels"]}
+        med[n] = {k: statistics.median(r["kernels"].get(k, [0.0, 0])[0]
+                                       for r in runs[n]) for k in keys}
+        totals = [sum(v[0] for v in r["kernels"].values()) for r in runs[n]]
+        print(f"{n}: device ms per step {statistics.median(totals):.3f} "
+              f"(runs {', '.join(f'{v:.3f}' for v in totals)})")
+    first = order[0]
+    keys = set().union(*(med[n] for n in order))
+    diff = sorted(keys, key=lambda k: -max(
+        abs(med[n].get(k, 0.0) - med[first].get(k, 0.0)) for n in order))
+    print(f"kernels by the largest change against {first} (median ms): "
+          + " | ".join(order))
+    for k in diff[:top]:
+        print("  " + " | ".join(f"{med[n].get(k, 0.0):9.3f}" for n in order)
+              + f"  {k[:110]}")
+    return med
+
+
 def worker(check: bool, gather: bool) -> dict:
     """Times this process's package (the first on sys.path)."""
     import torch
@@ -86,14 +204,10 @@ def worker(check: bool, gather: bool) -> dict:
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     device = torch.device("cuda", 0)
-    graphs = {}
+    graphs = {4: _config4_graph(device)}
     with torch.no_grad():
         coords, values, nv = chip_smoke.events(chip_smoke.config3(), device)
         graphs[3] = build_tile_graph(coords, values, nv, chip_smoke.config3())
-        blob = chip_smoke.event_blob(chip_smoke.config4(), chip_smoke.BATCH4)
-        graphs[4] = build_tile_graph(
-            *(torch.from_numpy(blob[k]).to(device)
-              for k in ("coords", "values", "n_voxels")), chip_smoke.config4())
     out = {"package": hc.__file__, "shapes": {}, "errors": {}}
     for i, (name, cfg, lvl, t, cin, cout, dx) in enumerate(SHAPES):
         level = graphs[cfg].levels[lvl]
@@ -147,23 +261,29 @@ def worker(check: bool, gather: bool) -> dict:
     return out
 
 
-def _build(trees: dict) -> None:
-    """Builds every tree's kernel library at once, one process each."""
+def _build(trees: dict) -> list:
+    """Builds every tree's kernel library at once, one process each;
+    prints each failed build's log and returns those trees' names."""
     procs = {name: subprocess.Popen(
         [sys.executable, "-c", "from uresnet_pytorch_tpu_torch.ops import "
          "cuda; print(cuda.build())"], cwd=d, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for name, d in trees.items()}
+    failed = []
     for name, p in procs.items():
         log, _ = p.communicate()
         if p.returncode:
-            raise RuntimeError(f"tree {name}: build failed\n{log}")
+            print(f"tree {name}: build failed\n{log}", flush=True)
+            failed.append(name)
+    return failed
 
 
-def _run(tree: Path, check: bool, gather: bool) -> dict:
+def _run(tree: Path, check: bool, gather: bool, dw: bool,
+         step: bool) -> dict:
     """One worker process: this file run as a script, with `tree` first on
     sys.path so that the package under test is that tree's."""
     res = subprocess.run([sys.executable, __file__, "--worker", str(tree)]
-                         + ["--check", "this"] * check + ["--gather"] * gather,
+                         + ["--check", "this"] * check + ["--gather"] * gather
+                         + ["--dw"] * dw + ["--step"] * step,
                          cwd=ROOT, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"tree {tree}: worker failed\n{res.stdout}"
@@ -179,13 +299,20 @@ def main(argv=None) -> int:
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--check", action="append", default=[])
     p.add_argument("--gather", action="store_true")
+    p.add_argument("--dw", action="store_true",
+                   help="time kernel C (d_W) instead of kernel B")
+    p.add_argument("--step", action="store_true",
+                   help="profile a config-4 step instead, by kernel name")
     p.add_argument("--out", type=Path,
                    default=Path("build/bench_kernel_b.json"))
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
         sys.path[:1] = [args.worker, str(ROOT)]
-        print("RESULT", json.dumps(worker(bool(args.check), args.gather)))
+        res = worker_step() if args.step else \
+            worker_dw(bool(args.check)) if args.dw else \
+            worker(bool(args.check), args.gather)
+        print("RESULT", json.dumps(res))
         return 0
     trees = {"this": ROOT}
     for spec in args.tree:
@@ -195,22 +322,30 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     print(smi, flush=True)
-    _build(trees)
-    order = list(trees)
-    runs = {name: [] for name in trees}
+    broken = _build(trees)
+    order = [n for n in trees if n not in broken]
+    runs = {name: [] for name in order}
     for r in range(args.rounds):
         for name in order + order[::-1]:
             res = _run(trees[name], name in args.check and r == 0,
-                       args.gather)
+                       args.gather, args.dw, args.step)
             runs[name].append(res)
             print(f"round {r} {name}: done", flush=True)
+    if args.step:
+        table = _step_table(order, runs)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(
+            {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
+             "step_ms_by_kernel": table, "runs": runs}, indent=1))
+        return 1 if broken else 0
     first = order[0]
     print(f"{'shape':24s} {'form':6s} " + " ".join(
         f"{n[:14]:>16s}" for n in order) + "  (median ms of "
         f"{2 * args.rounds} runs, x{first} = ratio to {first})")
     table = {}
-    for name, *_ in SHAPES:
-        for form in ("bn_act", "raw"):
+    forms = ("dw",) if args.dw else ("bn_act", "raw")
+    for name, *_ in DW_SHAPES if args.dw else SHAPES:
+        for form in forms:
             cells = {}
             for n in order:
                 vals = [r["shapes"][name].get(form) for r in runs[n]]
@@ -230,11 +365,11 @@ def main(argv=None) -> int:
             print(f"{n}: no launch at {', '.join(errors)}")
         checks = [(s, form, res[form + "_ok"], res[form + "_max_abs_err"])
                   for r in runs[n] for s, res in r["shapes"].items()
-                  for form in ("bn_act", "raw") if form + "_ok" in res]
+                  for form in forms if form + "_ok" in res]
         if checks:
             bad = [c for c in checks if not c[2]]
             print(f"{n}: {len(checks) - len(bad)} of {len(checks)} checks "
-                  f"within the bf16 bound, max|err| "
+                  f"within the bound, max|err| "
                   f"{max(c[3] for c in checks):.3e}"
                   + "".join(f"; FAILED {s} {form}" for s, form, *_ in bad))
     for g in ("link1 child", "link1 parent"):
@@ -251,13 +386,14 @@ def main(argv=None) -> int:
     args.out.write_text(json.dumps(
         {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
          "table": table, "runs": runs}, indent=1))
-    failed = [(n, s) for n in args.check for r in runs[n]
+    failed = [(n, s) for n in args.check if n in runs for r in runs[n]
               for s, res in r["shapes"].items()
-              if res.get("bn_act_ok") is False or res.get("raw_ok") is False]
+              if any(res.get(f + "_ok") is False for f in forms)]
     if failed:
         print(f"checks failed: {failed}")
-        return 1
-    return 0
+    if broken:
+        print(f"not built: {broken}")
+    return 1 if failed or broken else 0
 
 
 if __name__ == "__main__":

@@ -61,8 +61,13 @@
 
 namespace {
 
+using halo::cp_async16;
+using halo::cp_async_commit;
+using halo::cp_async_wait;
+using halo::ext_source;
 using halo::FastDiv;
 using halo::ipow;
+using halo::pack2;
 
 constexpr int kRows = 64;                 // output rows per group
 constexpr int kWarpsM = kRows / 16;       // warps along the rows
@@ -105,47 +110,6 @@ __device__ __forceinline__ void ldsm_x2(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
                : "=r"(r[0]), "=r"(r[1])
                : "r"(a));
-}
-
-// 16 bytes global -> shared without a register round trip; zeros when
-// !valid (src-size 0 reads nothing)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>   // until at most N of this thread's copy groups are pending
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) |
-         ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Ext cell e of a tile (row-major, last axis fastest) takes, per axis, ext
-// coord 0 from the -1 neighbor's cell t-1, coord t+1 from the +1 neighbor's
-// cell 0 and coords 1..t from the tile itself (the slab_cells geometry of
-// ops/halo.py): its stencil offset (halo_offsets order with the center
-// inserted) | its source cell << 5.
-__device__ __forceinline__ int ext_source(int e, int t, int dim) {
-  const int E = t + 2;
-  int rem = e, kfull = 0, scell = 0, mk = 1, ms = 1;
-  for (int ax = 0; ax < dim; ++ax) {
-    const int ea = rem % E;
-    rem /= E;
-    kfull += (ea == 0 ? 0 : (ea == t + 1 ? 2 : 1)) * mk;
-    scell += (ea == 0 ? t - 1 : (ea == t + 1 ? 0 : ea - 1)) * ms;
-    mk *= 3;
-    ms *= t;
-  }
-  return kfull | (scell << 5);
 }
 
 template <int NTW, bool kEpilogue, bool kPacked, bool kAhead>

@@ -11,53 +11,85 @@
 // The TPU kernels rebuild each grid step's extended block in VMEM with
 // one-hot gathers and accumulate a banded Toeplitz cotangent in one f32
 // block that the sequential grid revisits, mapped to d_W afterwards by
-// toeplitz_adjoint. Here the block stages extended tiles straight from plain
-// (B, T, t^dim, C) rows through idx/ok (halo_stage.cuh, the staging of
-// kernel B), so one kernel serves every (t, C), Cin = 1 included, and
-// computes d_W itself.
+// toeplitz_adjoint. Here a block stages extended tiles straight from plain
+// (B, T, t^dim, C) rows through idx/ok, so one kernel serves every (t, C),
+// Cin = 1 included, and computes d_W itself.
 //
 // What bounds it on an H100: d_W is a GEMM with a tiny output (27 x Cin x
-// Cout, at most 27x128x128 f32) and a reduction over millions of cells, so
-// the work is the reduction: staging each tile's extended block and g rows
-// (global loads, then shared-memory traffic), not tensor-core FLOPs. The
-// output does not fit one block (27x80x80 f32 = 691 KB in training), and
-// one atomic per tile per element would be ~1e9 atomics a call. Design:
-// blocks split the output by (16-channel Cin slice, group of 9 offsets),
-// one offset per warp, and split the cells by a grid-stride loop over
-// chunks of 64 cells (one t=4 tile, eight t=2 tiles). Each warp keeps its
-// 16 x Cout slice of d_W[k] in registers over all its chunks and adds it
-// into global memory once, with atomics: about 1e6 atomics a call. Per
-// chunk the block stages 16 input channels of the extended tiles and all
-// Cout channels of g in shared memory; each warp runs mma.sync m16n8k16
-// (bf16 in, f32 accumulate) with M = Cin slice, N = Cout, K = 16 cells,
-// both operands loaded transposed by ldmatrix from the [cell][channel]
-// rows (the A rows at the offset's shifted ext position). Dead tiles
-// (blive = 0) stage g as zeros and add nothing; a chunk with no live tile
-// is skipped. The f32 sums run in another order than the plain version's,
-// so results agree to rounding, not bitwise.
+// Cout, at most 27x128x128 f32) and a reduction over millions of cells:
+// M = (offset, input channel), N = output channel, depth = cells. Its card
+// bound is the bytes of x and g (0.05 ms at config-4 L0); a kernel pays on
+// top for staging the extended tiles (indexed loads of neighbor rows; at
+// t=2 the extended block is 8x the tile) and for the latency of each
+// chunk's loads and barriers. The earlier design gave each block one group
+// of 9 offsets and a 16-channel input slice, so every chunk was staged
+// 3-15 times (once per block row), with no copy in flight while the MMAs
+// ran, and the stem staged 16 channels a cell for its one.
+//
+// Design:
+// - A block owns a 16-channel input slice and ALL offsets for a slice of
+//   output channels (blockIdx.y), so each chunk of cells is staged once per
+//   Cout slice. The block's M rows come in 16-row MMA tiles: one per offset
+//   (Cin >= 16), or, for Cin < 16, the 27 x Cin (offset, channel) rows
+//   packed into ceil(27 Cin / 16) tiles (the stem: 2, not 27). Nine warps
+//   split the M tiles into wm groups of mw tiles; where there are fewer
+//   tiles than warps (the stem), the warps of a group split the chunk's
+//   16-cell depth steps round-robin instead. Each warp keeps its mw x Cout
+//   slice x 16 accumulators in registers over all its chunks (at most 120
+//   f32 a lane: wider Cout is split across blocks, not offsets) and adds
+//   them into d_W once, with atomics.
+// - A block walks chunks of whole tiles (256 cells: 4 tiles at t=4, 32 at
+//   t=2) in a grid-stride loop, one wave of blocks; the per-block tables
+//   (each extended cell's source, each chunk cell's extended row) are built
+//   once. Each chunk's 27 neighbor rows per tile are read into registers a
+//   chunk ahead. A chunk's extended rows and g rows come by 16-byte
+//   cp.async, all in flight at once; then its MMAs run, and the blocks on
+//   one SM overlap each other's copies and MMAs. (A second buffer, copying
+//   the next chunk during this one's MMAs, gained nothing once chunks were
+//   256 cells.)
+// - Operands: g rows by ldmatrix.trans (cells x Cout -> the MMA's B); the
+//   extended rows by ldmatrix.trans at each offset's shifted rows, or, for
+//   packed rows, by scalar loads through a per-lane (offset, channel) row
+//   offset, the extended block staged at its true width. Padded rows read a
+//   real cell and are never added. mma.sync m16n8k16, bf16 in, f32 sums.
+// - Dead tiles (blive = 0) stage g as zeros and add nothing; a chunk with
+//   no live tile is skipped. The f32 sums run in another order than the
+//   plain version's, so results agree to rounding, not bitwise.
 
 #include "halo_stage.cuh"
 
 namespace {
 
+using halo::cp_async16;
+using halo::cp_async_commit;
+using halo::cp_async_wait;
+using halo::ext_source;
+using halo::FastDiv;
 using halo::ipow;
+using halo::pack2;
 
-constexpr int kWarps = 9;                 // one stencil offset per warp
+constexpr int kWarps = 9;
 constexpr int kThreads = kWarps * 32;
-constexpr int kWidth = 16;                // input channels per block (MMA M)
 constexpr int kPad = 8;                   // bf16 pad per smem row (bank spread)
-constexpr int kChunk = 64;                // cells per chunk when a tile is smaller
-constexpr int kMaxTiles = 16;             // tiles per chunk (dim 2, t = 2)
-constexpr int kTargetBlocks = 132 * 4;    // about 4 resident blocks per SM
+constexpr int kChunkCells = 256;          // cells per chunk where tiles are smaller
+constexpr int kNbrPerThread = 3;          // map entries (tiles x K) per thread
+constexpr int kMaxAcc = 120;              // f32 accumulators a lane may hold
 constexpr size_t kMaxSmem = 232448;       // dynamic shared memory a block may use
 
-// the staging geometry (width = 16 channels at c_lo) plus the g side
-struct DwShape : halo::Stage {
-  int B, Cout;
-  int sg;                    // g smem row stride (bf16)
-  int chunk;                 // cells per chunk (tiles * cells)
-  int kgroups;               // groups of kWarps offsets: K / kWarps
-  int per_event;             // chunks per event
+// the shape and the launch plan, shared by host and device
+struct DwPlan {
+  int T, t, dim, Cin, Cout;
+  int cells, ecells, K;      // t^dim, (t+2)^dim, 3^dim
+  int tiles, chunk, ksteps;  // tiles, cells and 16-cell depth steps per chunk
+  int per_event, chunks;     // chunks per event, in all
+  int packed;                // (offset, channel) rows packed: Cin < 16
+  int width, sa;             // channels staged per ext cell, smem row stride
+  int cslices, mtiles;       // Cin slices (blockIdx.y), 16-row M tiles per block
+  int wm, mw, nph;           // warp groups, M tiles per warp, depth phases
+  int cs, sg;                // Cout per slice (blockIdx.y), g smem row stride
+  int vec;                   // stage ext by 16-byte copies
+  FastDiv by_unit, by_ecells, by_per_event, by_k;
+  size_t ext_elems, g_elems, table_bytes, smem;
 };
 
 __device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
@@ -77,125 +109,363 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
 
 // x (B,T,cells,Cin) bf16, g (B,T,cells,Cout) bf16 (16-byte aligned),
 // idx/ok (B,K-1,T), live (B,T), dw (K,Cin,Cout) f32, zeroed by the caller.
-template <int NT>
+// blockIdx.y = Cin slice * (Cout / cs) + Cout slice.
+template <int MW, int NT, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
                     const __nv_bfloat16* __restrict__ g,
                     const int* __restrict__ idx, const uint8_t* __restrict__ ok,
                     const uint8_t* __restrict__ live, float* __restrict__ dw,
-                    DwShape s) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int c_lo = (blockIdx.y / s.kgroups) * kWidth;
-  const int k = (blockIdx.y % s.kgroups) * kWarps + warp;   // this warp's offset
-  const int doff = halo::offset_shift(k, s.dim, s.t + 2);
-
+                    DwPlan p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ext_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* g_s = ext_s + (size_t)s.tiles * s.ecells * s.sa;
-  int* erow = reinterpret_cast<int*>(g_s + (size_t)s.chunk * s.sg);
-  __shared__ int nbr[kMaxTiles * 27];   // source row per (tile, offset), -1 = none
-  __shared__ int any_live;
+  int* esrc = reinterpret_cast<int*>(smem);             // ecells
+  int* erow = esrc + p.ecells;                          // chunk: ext row * sa
+  int* nbr = erow + p.chunk;                            // tiles * K
+  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem + p.table_bytes);
+  //                                                       ext, then g
 
-  // ext row of each chunk cell (tile j, cell p)
-  for (int i = threadIdx.x; i < s.chunk; i += kThreads) {
-    const int j = i / s.cells;
-    erow[i] = j * s.ecells + halo::cell_ext_row(i - j * s.cells, s.t, s.dim);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, q = lane & 3;
+  const int nslices = p.Cout / p.cs;
+  const int c_lo = (blockIdx.y / nslices) * 16;         // unpacked only
+  const int co_lo = (blockIdx.y % nslices) * p.cs;
+  const int center = p.K / 2;
+  const int wgrp = warp % p.wm, ph = warp / p.wm;
+
+  // once per block: the geometry tables
+  for (int e = tid; e < p.ecells; e += kThreads) esrc[e] = ext_source(e, p.t, p.dim);
+  for (int i = tid; i < p.chunk; i += kThreads) {
+    const int j = i / p.cells;
+    erow[i] = (j * p.ecells + halo::cell_ext_row(i - j * p.cells, p.t, p.dim)) * p.sa;
   }
 
-  // ldmatrix row of this lane: A (16 Cin x 16 cells) as four 8x8 matrices
-  // (cells 0-7 | 8-15) x (channels 0-7 | 8-15); B (16 cells x 16 Cout)
-  // as (cells 0-7 | 8-15) x (Cout n..n+7 | n+8..n+15)
-  const int a_cell = ((lane >> 4) << 3) + (lane & 7);
-  const int a_ch = ((lane >> 3) & 1) * 8;
-  const int b_cell = ((lane >> 3) & 1) * 8 + (lane & 7);
-  const int b_ch = (lane >> 4) * 8;
-  const int gvec = s.Cout / 8;
-
-  float acc[NT][4];
+  // this lane's operand offsets: A rows of each of its M tiles (unpacked:
+  // the ldmatrix row's offset shift + channel half; packed: rows g and
+  // g + 8 as (offset shift, channel)), B's ldmatrix row and column
+  int ro[MW][2];
 #pragma unroll
-  for (int n = 0; n < NT; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < MW; ++i) {
+    const int mt = wgrp + i * p.wm;
+    if (kPacked) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * 16 + gq + 8 * h;
+        const int k = p.by_k.div(m);
+        ro[i][h] = m < p.K * p.Cin
+                       ? halo::offset_shift(k, p.dim, p.t + 2) * p.sa + (m - k * p.Cin)
+                       : 0;
+      }
+    } else {
+      ro[i][0] = mt < p.K ? halo::offset_shift(mt, p.dim, p.t + 2) * p.sa
+                                + ((lane >> 3) & 1) * 8
+                          : 0;
+      ro[i][1] = 0;
+    }
+  }
+  const int a_cell = ((lane >> 4) << 3) + (lane & 7);
+  const int b_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * p.sg + (lane >> 4) * 8;
 
-  const int total = s.B * s.per_event;
-  for (int c = blockIdx.x; c < total; c += gridDim.x) {
-    const int ev = c / s.per_event;
-    const int tile0 = (c - ev * s.per_event) * s.tiles;
-    __syncthreads();          // the previous chunk's reads are done
-    if (threadIdx.x == 0) any_live = 0;
-    __syncthreads();
-    halo::build_nbr(nbr, &any_live, idx, ok, live, ev, tile0, s);
-    __syncthreads();
-    if (!any_live) continue;
-
-    const size_t evrow = (size_t)ev * s.T;
-    halo::stage_ext(ext_s, x + evrow * s.cells * s.Cin, nbr, c_lo, s);
-    const __nv_bfloat16* gev = g + evrow * s.cells * s.Cout;
-    for (int i = threadIdx.x; i < s.chunk * gvec; i += kThreads) {
+  // A chunk's neighbor rows: `prefetch` loads this thread's entries of the
+  // maps into registers, `take` writes them into nb as source rows (-1 =
+  // none; every offset of a dead tile or one past T) and returns true if
+  // this thread saw a live tile. Between the two the loads are in flight.
+  uint8_t pl[kNbrPerThread], po[kNbrPerThread];
+  int pi[kNbrPerThread];
+  auto prefetch = [&](int c) {
+    const int ev = p.by_per_event.div(c);
+    const int tile0 = (c - ev * p.per_event) * p.tiles;
+#pragma unroll
+    for (int e = 0; e < kNbrPerThread; ++e) {
+      const int i = tid + e * kThreads;
+      pl[e] = 0;
+      if (c < p.chunks && i < p.tiles * p.K) {
+        const int j = i / p.K, k = i - j * p.K;
+        const int tile = tile0 + j;
+        if (tile < p.T) {
+          pl[e] = live[(size_t)ev * p.T + tile];
+          if (k != center) {
+            const size_t m =
+                ((size_t)ev * (p.K - 1) + (k < center ? k : k - 1)) * p.T + tile;
+            po[e] = ok[m];
+            pi[e] = idx[m];
+          }
+        }
+      }
+    }
+  };
+  auto take = [&](int c, int* nb) {
+    const int ev = p.by_per_event.div(c);
+    const int tile0 = (c - ev * p.per_event) * p.tiles;
+    bool mine = false;
+#pragma unroll
+    for (int e = 0; e < kNbrPerThread; ++e) {
+      const int i = tid + e * kThreads;
+      if (i < p.tiles * p.K) {
+        const int j = i / p.K, k = i - j * p.K;
+        int r = -1;
+        if (pl[e]) {
+          mine = true;
+          r = k == center ? tile0 + j : (po[e] ? pi[e] : -1);
+        }
+        nb[i] = r;
+      }
+    }
+    return mine;
+  };
+  // stage a chunk's extended rows (this block's channels, zeros past Cin
+  // and for a missing neighbor) and its g rows (this block's Cout slice,
+  // zeros on dead tiles) into b: cp.async, committed by the caller; the
+  // extended rows by plain loads and stores off the vector path
+  auto stage = [&](int c, const int* nb, __nv_bfloat16* b) {
+    const int ev = p.by_per_event.div(c);
+    const int tile0 = (c - ev * p.per_event) * p.tiles;
+    const __nv_bfloat16* xev = x + (size_t)ev * p.T * p.cells * p.Cin;
+    const int unit = p.vec ? 8 : 1;
+    const int per_cell = p.width / unit;
+    for (int i = tid; i < p.tiles * p.ecells * per_cell; i += kThreads) {
+      const int cellu = p.by_unit.div(i);           // tile * ecells + e
+      const int c8 = (i - cellu * per_cell) * unit;
+      const int j = p.by_ecells.div(cellu);
+      const int es = esrc[cellu - j * p.ecells];
+      const int r = nb[j * p.K + (es & 31)];
+      const int ch = (kPacked ? 0 : c_lo) + c8;
+      const bool hit = r >= 0 && ch < p.Cin;
+      const __nv_bfloat16* src =
+          hit ? xev + ((size_t)r * p.cells + (es >> 5)) * p.Cin + ch : xev;
+      __nv_bfloat16* dst = b + (size_t)cellu * p.sa + c8;
+      if (p.vec)
+        cp_async16(dst, src, hit);
+      else
+        *dst = hit ? *src : __float2bfloat16(0.f);
+    }
+    const __nv_bfloat16* gev = g + ((size_t)ev * p.T + tile0) * p.cells * p.Cout + co_lo;
+    __nv_bfloat16* gb = b + p.ext_elems;
+    const int gvec = p.cs / 8;
+    for (int i = tid; i < p.chunk * gvec; i += kThreads) {
       const int cell = i / gvec;
       const int ch = (i - cell * gvec) * 8;
-      const int j = cell / s.cells;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (nbr[j * s.K + s.K / 2] >= 0) {       // live tile
-        const size_t src = ((size_t)(tile0 + j) * s.cells + cell - j * s.cells)
-                           * s.Cout + ch;
-        v = __ldg(reinterpret_cast<const uint4*>(gev + src));
-      }
-      *reinterpret_cast<uint4*>(g_s + (size_t)cell * s.sg + ch) = v;
+      const bool hit = nb[(cell / p.cells) * p.K + center] >= 0;
+      cp_async16(gb + (size_t)cell * p.sg + ch,
+                 hit ? gev + (size_t)cell * p.Cout + ch : gev, hit);
     }
-    __syncthreads();
+  };
 
-    for (int k0 = 0; k0 < s.chunk; k0 += 16) {
-      uint32_t af[4];
-      ldsm_x4_trans(af, ext_s + (size_t)(erow[k0 + a_cell] + doff) * s.sa + a_ch);
-      const __nv_bfloat16* bp = g_s + (size_t)(k0 + b_cell) * s.sg + b_ch;
+  float acc[MW][NT][4];
+#pragma unroll
+  for (int i = 0; i < MW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) acc[i][n][0] = acc[i][n][1] = acc[i][n][2] = acc[i][n][3] = 0.f;
+
+  // this warp's depth steps of a chunk in buffer b: ks = ks0, ks0 + nph,
+  // ...; returns where the next chunk starts (the phases rotate over
+  // chunks, so a warp group's steps stay balanced across its warps)
+  auto compute = [&](const __nv_bfloat16* b, int ks0) {
+    const __nv_bfloat16* gb = b + p.ext_elems;
+    int ks = ks0;
+    for (; ks < p.ksteps; ks += p.nph) {
+      const int k0 = ks * 16;
+      uint32_t bf[NT][2];
+      const __nv_bfloat16* bp = gb + (size_t)k0 * p.sg + b_off;
 #pragma unroll
       for (int n = 0; n + 1 < NT; n += 2) {
-        uint32_t bf[4];
-        ldsm_x4_trans(bf, bp + n * 8);
-        halo::mma_16816(acc[n], af, bf[0], bf[1]);
-        halo::mma_16816(acc[n + 1], af, bf[2], bf[3]);
+        uint32_t r[4];
+        ldsm_x4_trans(r, bp + n * 8);
+        bf[n][0] = r[0]; bf[n][1] = r[1]; bf[n + 1][0] = r[2]; bf[n + 1][1] = r[3];
       }
-      if (NT & 1) {
-        uint32_t bf[2];
-        ldsm_x2_trans(bf, bp + (NT - 1) * 8);
-        halo::mma_16816(acc[NT - 1], af, bf[0], bf[1]);
+      if (NT & 1) ldsm_x2_trans(bf[NT - 1], bp + (NT - 1) * 8);
+      if (kPacked) {
+        // cells k0 + 2q, +1, +8, +9: A[row][cell] = ext[erow(cell) + ro(row)]
+        const int e0 = erow[k0 + 2 * q], e1 = erow[k0 + 2 * q + 1];
+        const int e2 = erow[k0 + 2 * q + 8], e3 = erow[k0 + 2 * q + 9];
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          if (wgrp + i * p.wm >= p.mtiles) continue;
+          uint32_t af[4];
+          af[0] = pack2(b[e0 + ro[i][0]], b[e1 + ro[i][0]]);
+          af[1] = pack2(b[e0 + ro[i][1]], b[e1 + ro[i][1]]);
+          af[2] = pack2(b[e2 + ro[i][0]], b[e3 + ro[i][0]]);
+          af[3] = pack2(b[e2 + ro[i][1]], b[e3 + ro[i][1]]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) halo::mma_16816(acc[i][n], af, bf[n][0], bf[n][1]);
+        }
+      } else {
+        const __nv_bfloat16* ap = b + erow[k0 + a_cell];
+#pragma unroll
+        for (int i = 0; i < MW; ++i) {
+          if (wgrp + i * p.wm >= p.mtiles) continue;
+          uint32_t af[4];
+          ldsm_x4_trans(af, ap + ro[i][0]);
+#pragma unroll
+          for (int n = 0; n < NT; ++n) halo::mma_16816(acc[i][n], af, bf[n][0], bf[n][1]);
+        }
       }
     }
+    return ks - p.ksteps;
+  };
+
+  // the loop over this block's chunks: each barrier also ends the last
+  // chunk's reads; the next chunk's maps load while this one is staged and
+  // multiplied
+  int c = blockIdx.x, ks0 = ph;
+  prefetch(c);
+  while (c < p.chunks) {
+    const int nxt = c + gridDim.x;
+    const bool any_live = __syncthreads_or(take(c, nbr));
+    if (any_live) stage(c, nbr, buf);
+    cp_async_commit();
+    prefetch(nxt);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (any_live) ks0 = compute(buf, ks0);
+    c = nxt;
   }
 
-  // c0,c1 -> (ci = c_lo + g, co = 8n + 2q, +1); c2,c3 -> ci + 8
-  const int gq = lane >> 2, q = lane & 3;
+  // c0,c1 -> (row g, co 8n + 2q, +1); c2,c3 -> row g + 8
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int ci = c_lo + gq + 8 * h;
-    if (ci >= s.Cin) continue;
-    float* row = dw + ((size_t)k * s.Cin + ci) * s.Cout;
+  for (int i = 0; i < MW; ++i) {
+    const int mt = wgrp + i * p.wm;
+    if (mt >= p.mtiles) continue;
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      atomicAdd(row + n * 8 + 2 * q, acc[n][2 * h]);
-      atomicAdd(row + n * 8 + 2 * q + 1, acc[n][2 * h + 1]);
+    for (int h = 0; h < 2; ++h) {
+      int row;                // row of d_W viewed as (K * Cin, Cout)
+      if (kPacked) {
+        row = mt * 16 + gq + 8 * h;
+        if (row >= p.K * p.Cin) continue;
+      } else {
+        const int ci = c_lo + gq + 8 * h;
+        if (ci >= p.Cin) continue;
+        row = mt * p.Cin + ci;
+      }
+      float* out = dw + (size_t)row * p.Cout + co_lo + 2 * q;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        atomicAdd(out + n * 8, acc[i][n][2 * h]);
+        atomicAdd(out + n * 8 + 1, acc[i][n][2 * h + 1]);
+      }
     }
   }
 }
 
-template <int NT>
+template <int MW, int NT, bool kPacked>
 int launch(const void* x, const void* g, const void* idx, const void* ok,
-           const void* live, void* dw, const DwShape& s, size_t smem,
-           cudaStream_t stream) {
-  auto kernel = halo_conv_dw_kernel<NT>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+           const void* live, void* dw, const DwPlan& p, cudaStream_t stream) {
+  auto kernel = halo_conv_dw_kernel<MW, NT, kPacked>;
+  // the blocks one wave holds, asked of the runtime once per (device,
+  // shared memory size) of this instantiation: the launch is on the
+  // training step's host path
+  struct Wave {
+    int dev;
+    size_t smem;
+    int blocks;
+  };
+  thread_local Wave waves[8];
+  thread_local int n_waves = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  const int mtiles = (s.Cin + kWidth - 1) / kWidth;
-  const int gy = mtiles * s.kgroups;
-  const int total = s.B * s.per_event;
-  int gx = kTargetBlocks / gy;
-  gx = gx < 1 ? 1 : (gx > total ? total : gx);
-  dim3 grid(gx, gy);
-  kernel<<<grid, kThreads, smem, stream>>>(
+  int blocks = 0;
+  for (int i = 0; i < n_waves && i < 8; ++i)
+    if (waves[i].dev == dev && waves[i].smem == p.smem) blocks = waves[i].blocks;
+  if (!blocks) {
+    int sms = 0, per_sm = 0;
+    // the largest plan's size, so that every cached size may launch
+    if ((e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kMaxSmem)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return (int)e;
+    if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads,
+                                                           p.smem)) != cudaSuccess)
+      return (int)e;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    blocks = sms * per_sm;
+    waves[n_waves++ % 8] = Wave{dev, p.smem, blocks};
+  }
+  // one wave: as many blocks as fit on the SMs at once (a second, partial
+  // wave would double the time of the blocks in it)
+  const int gy = p.cslices * (p.Cout / p.cs);
+  int gx = blocks / gy;
+  if (gx < 1) gx = 1;
+  if (gx > p.chunks) gx = p.chunks;
+  kernel<<<dim3(gx, gy), kThreads, p.smem, stream>>>(
       (const __nv_bfloat16*)x, (const __nv_bfloat16*)g, (const int*)idx,
-      (const uint8_t*)ok, (const uint8_t*)live, (float*)dw, s);
+      (const uint8_t*)ok, (const uint8_t*)live, (float*)dw, p);
   return (int)cudaGetLastError();
+}
+
+// The plan: chunks of whole tiles; M tiles, warp groups, Cout slices and
+// buffers as above. Mirrored by ops/cuda/halo_conv_dw.py:dw_plan.
+int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
+  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 8 || Cout % 8 || Cout > 128 ||
+      B < 0 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
+  p.cells = ipow(t, dim);
+  p.ecells = ipow(t + 2, dim);
+  p.K = ipow(3, dim);
+  if (p.cells <= kChunkCells && kChunkCells % p.cells == 0)
+    p.tiles = kChunkCells / p.cells;
+  else if (p.cells % 16 == 0)
+    p.tiles = 1;
+  else
+    return (int)cudaErrorInvalidValue;
+  if (p.tiles * p.K > kNbrPerThread * kThreads) return (int)cudaErrorInvalidValue;
+  p.chunk = p.tiles * p.cells;
+  p.ksteps = p.chunk / 16;
+  p.per_event = (T + p.tiles - 1) / p.tiles;
+  p.chunks = B * p.per_event;
+  p.packed = Cin < 16;
+  p.width = p.packed ? Cin : 16;
+  p.sa = p.packed ? Cin : 16 + kPad;
+  p.cslices = p.packed ? 1 : (Cin + 15) / 16;
+  p.mtiles = p.packed ? (p.K * Cin + 15) / 16 : p.K;
+  p.wm = p.mtiles >= 9 ? 9 : (p.mtiles >= 3 ? 3 : 1);
+  p.mw = (p.mtiles + p.wm - 1) / p.wm;
+  p.nph = kWarps / p.wm;
+  if (p.mw > 3) return (int)cudaErrorInvalidValue;
+  p.vec = Cin % 8 == 0 && aligned;
+  p.ext_elems = ((size_t)p.tiles * p.ecells * p.sa + 7) / 8 * 8;
+  p.table_bytes = ((size_t)(p.ecells + p.chunk + p.tiles * p.K) * sizeof(int) + 15) / 16 * 16;
+  // the widest Cout slice within the accumulator budget whose buffer fits
+  const int n = Cout / 8;
+  p.cs = 0;
+  for (int d = n; d >= 1 && !p.cs; --d) {
+    if (n % d || p.mw * d * 4 > kMaxAcc) continue;
+    const size_t g_elems = (size_t)p.chunk * (d * 8 + kPad);
+    const size_t buf = (p.ext_elems + g_elems) * sizeof(__nv_bfloat16);
+    if (p.table_bytes + buf > kMaxSmem) continue;
+    p.cs = d * 8;
+  }
+  if (!p.cs) return (int)cudaErrorInvalidValue;
+  p.sg = p.cs + kPad;
+  p.g_elems = (size_t)p.chunk * p.sg;
+  p.smem = p.table_bytes + (p.ext_elems + p.g_elems) * sizeof(__nv_bfloat16);
+  const int unit = p.vec ? 8 : 1;
+  p.by_unit = FastDiv(p.width / unit);
+  p.by_ecells = FastDiv(p.ecells);
+  p.by_per_event = FastDiv(p.per_event > 0 ? p.per_event : 1);
+  p.by_k = FastDiv(Cin);
+  return 0;
+}
+
+template <int MW, bool kPacked>
+int dispatch_nt(const void* x, const void* g, const void* idx, const void* ok,
+                const void* live, void* dw, const DwPlan& p, cudaStream_t st) {
+  switch (p.cs / 8) {
+#define HALO_CONV_DW_CASE(N)                                                          \
+  case N:                                                                             \
+    if (MW * N * 4 <= kMaxAcc)                                                        \
+      return launch<MW, (MW * N * 4 <= kMaxAcc ? N : 1), kPacked>(                    \
+          x, g, idx, ok, live, dw, p, st);                                            \
+    break;
+    HALO_CONV_DW_CASE(1) HALO_CONV_DW_CASE(2) HALO_CONV_DW_CASE(3) HALO_CONV_DW_CASE(4)
+    HALO_CONV_DW_CASE(5) HALO_CONV_DW_CASE(6) HALO_CONV_DW_CASE(7) HALO_CONV_DW_CASE(8)
+    HALO_CONV_DW_CASE(9) HALO_CONV_DW_CASE(10) HALO_CONV_DW_CASE(11) HALO_CONV_DW_CASE(12)
+    HALO_CONV_DW_CASE(13) HALO_CONV_DW_CASE(14) HALO_CONV_DW_CASE(15) HALO_CONV_DW_CASE(16)
+#undef HALO_CONV_DW_CASE
+    default: break;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -208,43 +478,29 @@ extern "C" {
 int halo_conv_dw(const void* x, const void* g, const void* idx, const void* ok,
                  const void* live, void* dw, int B, int T, int t, int dim,
                  int Cin, int Cout, void* stream) {
-  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout % 8 || Cout > 128 ||
-      (uintptr_t)g % 16)
-    return (int)cudaErrorInvalidValue;
-  const int cells = ipow(t, dim);
-  int tiles;
-  if (cells <= kChunk) {
-    if (kChunk % cells) return (int)cudaErrorInvalidValue;
-    tiles = kChunk / cells;
-  } else {
-    if (cells % 16) return (int)cudaErrorInvalidValue;
-    tiles = 1;
-  }
-  if (tiles > kMaxTiles) return (int)cudaErrorInvalidValue;
-  DwShape s;
-  s.init(T, t, dim, Cin, tiles, kWidth, kPad, (uintptr_t)x % 16 == 0);
-  s.B = B;
-  s.Cout = Cout;
-  s.sg = Cout + kPad;
-  s.chunk = tiles * cells;
-  s.kgroups = s.K / kWarps;
-  s.per_event = (T + tiles - 1) / tiles;
-  const size_t smem = sizeof(__nv_bfloat16) *
-                          ((size_t)tiles * s.ecells * s.sa + (size_t)s.chunk * s.sg) +
-                      sizeof(int) * (size_t)s.chunk;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (B == 0 || T == 0) return 0;
+  if ((uintptr_t)g % 16) return (int)cudaErrorInvalidValue;
+  DwPlan p;
+  const int err = make_plan(p, B, T, t, dim, Cin, Cout, (uintptr_t)x % 16 == 0);
+  if (err) return err;
+  if (p.chunks == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (Cout / 8) {
-#define HALO_CONV_DW_CASE(N) \
-  case N: return launch<N>(x, g, idx, ok, live, dw, s, smem, st);
-    HALO_CONV_DW_CASE(1) HALO_CONV_DW_CASE(2) HALO_CONV_DW_CASE(3) HALO_CONV_DW_CASE(4)
-    HALO_CONV_DW_CASE(5) HALO_CONV_DW_CASE(6) HALO_CONV_DW_CASE(7) HALO_CONV_DW_CASE(8)
-    HALO_CONV_DW_CASE(9) HALO_CONV_DW_CASE(10) HALO_CONV_DW_CASE(11) HALO_CONV_DW_CASE(12)
-    HALO_CONV_DW_CASE(13) HALO_CONV_DW_CASE(14) HALO_CONV_DW_CASE(15) HALO_CONV_DW_CASE(16)
-#undef HALO_CONV_DW_CASE
-    default: return (int)cudaErrorInvalidValue;
+  // unpacked rows: one M tile per offset, so mw = 3 (dim 3) or 1 (dim 2)
+  if (p.packed) {
+    if (p.mw == 1) return dispatch_nt<1, true>(x, g, idx, ok, live, dw, p, st);
+    if (p.mw == 2) return dispatch_nt<2, true>(x, g, idx, ok, live, dw, p, st);
+    return dispatch_nt<3, true>(x, g, idx, ok, live, dw, p, st);
   }
+  if (p.mw == 3) return dispatch_nt<3, false>(x, g, idx, ok, live, dw, p, st);
+  return dispatch_nt<1, false>(x, g, idx, ok, live, dw, p, st);
+}
+
+// The plan of a shape, as cs << 16 | tiles << 8 | wm << 4 | mw
+// (0 if it takes no such shape): chip_smoke.py holds
+// ops/cuda/halo_conv_dw.py:dw_plan to it.
+int halo_conv_dw_plan(int T, int t, int dim, int Cin, int Cout) {
+  DwPlan p;
+  if (make_plan(p, 1, T, t, dim, Cin, Cout, true)) return 0;
+  return p.cs << 16 | p.tiles << 8 | p.wm << 4 | p.mw;
 }
 
 }  // extern "C"

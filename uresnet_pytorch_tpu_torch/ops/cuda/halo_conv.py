@@ -8,8 +8,8 @@ k = (d0*3 + d1)*3 + d2 over {-1,0,1}^dim, neighbor rows from a
 `Halo26Spec`. Sums run in f32 and round once to x's dtype; the affine
 a, b (Cout,) is f32, the mask (B, T, t^dim) bool. Dead tile rows
 (`halo.blive` false) are zero in both versions. The kernel takes bfloat16
-(its tensor-core MMAs are bf16 x bf16 -> f32) and Cout a multiple of 8 up
-to 128; the plain version takes any float dtype and width.
+(its tensor-core MMAs are bf16 x bf16 -> f32) and the shapes that
+`kernel_plan` plans; the plain version takes any float dtype and width.
 
 Kernel B (`csrc/halo_conv.cu`) replaces four TPU kernels in
 `uresnet_pytorch_tpu/ops/pallas/halo_conv.py`: `fused_halo_conv_bn_act`
@@ -31,6 +31,9 @@ saves its outputs under `remat_mode="stage_dots"`.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -72,9 +75,10 @@ def _check(x, w, halo, t, dim, a, b, mask):
     if dim not in (2, 3) or cells != t ** dim or w.shape != (K, Cin, Cout):
         raise ValueError(f"halo_conv: x {tuple(x.shape)}, w "
                          f"{tuple(w.shape)} do not fit t={t}, dim={dim}")
-    if Cout % 8 or Cout > 128:
-        raise ValueError(f"halo_conv: the kernel takes Cout a multiple of 8 "
-                         f"up to 128, got {Cout}")
+    if kernel_plan(t, dim, Cin, Cout) is None:
+        raise ValueError(f"halo_conv: no plan for t={t}, dim={dim}, Cin="
+                         f"{Cin}, Cout={Cout} (the kernel takes Cout a "
+                         f"multiple of 8 up to 128, where its buffers fit)")
     shapes = [("idx", halo.idx, (B, K - 1, T), torch.int32),
               ("ok", halo.ok, (B, K - 1, T), torch.bool),
               ("blive", halo.blive, (B, T), torch.bool)]
@@ -108,17 +112,27 @@ def kernel_weights(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
-def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> tuple:
+@functools.lru_cache(maxsize=None)
+def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[tuple]:
     """(output channels per block, channels per staged chunk) of the
-    kernel's plan, mirrored from `make_plan` in csrc/halo_conv.cu. Each
-    block holds its Cout slice's weight rows in shared memory (227 KB a
-    block, less 8 KB of static tables) beside either one buffer of the
-    whole extended block, or two buffers of channel chunks (a multiple of
-    16 dividing the padded Cin), pipelined: the latter only where it takes
-    fewer slices, at Cin >= 16 and with one 16-row tile per warp. Both
-    take the fewest slices, then the widest chunk."""
+    kernel's plan, mirrored from `make_plan` in csrc/halo_conv.cu, or None
+    where the kernel takes no such conv: the one statement of its limits,
+    asked by the wrapper's check and by `ops/tile_conv.py`'s choice of
+    path. Cout is a multiple of 8 up to 128. Each block holds its Cout
+    slice's weight rows in shared memory (227 KB a block, less 8 KB of
+    static tables) beside either one buffer of the whole extended block,
+    or two buffers of channel chunks (a multiple of 16 dividing the padded
+    Cin), pipelined: the latter only where it takes fewer slices, at Cin
+    >= 16 and with one 16-row tile per warp. Both take the fewest slices,
+    then the widest chunk."""
+    if Cin < 1 or Cout < 8 or Cout % 8 or Cout > 128:
+        return None
     cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
+    if ecells > 1000 or (64 % cells if cells <= 64 else cells % 64):
+        return None
     tiles = max(1, 64 // cells)
+    if tiles * K > 216:
+        return None
     packed = Cin < 16
     cpad = Cin if packed else -(-Cin // 16) * 16
     kp = -(-K * Cin // 16) * 16 if packed else K * cpad
@@ -139,10 +153,7 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> tuple:
     if not packed and tiles * cells // 16 <= 4:
         two = fit(2, [c for c in range(cpad, 0, -16) if cpad % c == 0])
     d, cw = two if two[0] > one[0] else one
-    if not d:
-        raise ValueError(f"halo_conv: no plan for t={t}, Cin={Cin}, "
-                         f"Cout={Cout}")
-    return 8 * d, cw
+    return (8 * d, cw) if d else None
 
 
 def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out) -> tuple:

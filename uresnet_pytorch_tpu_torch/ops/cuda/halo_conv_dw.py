@@ -8,19 +8,24 @@ from a `Halo26Spec`, offsets k in the order of `halo_conv`'s weights. The
 result is f32 (3^dim, Cin, Cout). Dead tile rows (`halo.blive` false)
 contribute nothing: the conv writes zeros there whatever the weights. The
 kernel takes bfloat16 x and g (bf16 x bf16 -> f32 tensor-core MMAs) and
-Cout a multiple of 8 up to 128; the plain version takes any float dtype
+the shapes that `dw_plan` plans; the plain version takes any float dtype
 and width.
 
 Kernel C (`csrc/halo_conv_dw.cu`) replaces the TPU kernels
 `halo_conv_dw` (v2 and v1) in `uresnet_pytorch_tpu/ops/pallas/
 halo_conv.py` and the d_W half of `halo_conv_bwd` there. It stages the
-extended tiles from plain rows as kernel B does, so one kernel serves
-every (t, Cin). `halo_conv_dw_plain` is the same function in plain torch:
-the exact halo extend in f32, then one f32 GEMM per offset over the
-3^dim shifted slices, as the reference's `_dw_recompute` oracle.
+extended tiles from plain rows, once per chunk for all offsets, so one
+kernel serves every (t, Cin); `dw_plan` says how it splits the work.
+`halo_conv_dw_plain` is the same function in plain torch: the exact halo
+extend in f32, then one f32 GEMM per offset over the 3^dim shifted
+slices, as the reference's `_dw_recompute` oracle.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -28,6 +33,8 @@ from uresnet_pytorch_tpu_torch.ops import cuda
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec, halo26_extend
 
 launches = 0   # kernel launches, for showing a run went through the kernel
+# the same launches by (t, Cin, Cout), for each shape's share of a step
+launches_by_shape: collections.Counter = collections.Counter()
 
 
 def halo_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec,
@@ -46,6 +53,68 @@ def halo_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec,
     return torch.stack(dws)
 
 
+class DwPlan(NamedTuple):
+    """How the kernel splits d_W (`make_plan` in csrc/halo_conv_dw.cu).
+    Blocks take 16-channel Cin slices (Cin >= 16) or all of Cin, packed
+    (Cin < 16), times Cout slices of `cs` channels. A block's M rows come
+    in 16-row tiles: one per offset k (rows = the slice's channels), or
+    the 3^dim x Cin (offset, channel) rows k * Cin + c packed, padded to a
+    multiple of 16. Its 9 warps form `wm` groups; group w takes the M
+    tiles w, w + wm, ... (`mw` of them) and its 9 / wm warps split the
+    16-cell depth steps of its chunks (`tiles` whole tiles each)."""
+    cs: int
+    tiles: int
+    wm: int
+    mw: int
+
+
+_CHUNK_CELLS = 256       # cells per chunk where tiles are smaller
+_MAX_NBR = 3 * 288       # map entries a chunk may have: 3 per thread
+_MAX_ACC = 120           # f32 accumulators a lane may hold
+_MAX_SMEM = 232448       # dynamic shared memory a block may use
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[DwPlan]:
+    """The kernel's plan for a shape, mirrored from `make_plan` in
+    csrc/halo_conv_dw.cu, or None where the kernel takes no such d_W: the
+    one statement of its limits, asked by the wrapper's check and by
+    `ops/tile_conv.py`'s choice of path. Cout is a multiple of 8 up to
+    128; chunks are 256 cells of whole tiles (one tile where a tile is
+    larger); the Cout slice is the widest whose accumulators (mw x cs / 8
+    x 4 f32 a lane) stay within 120 and whose buffer fits in 227 KB beside
+    the tables."""
+    if dim not in (2, 3) or t < 2 or Cin < 1 or Cout < 8 or Cout % 8 \
+            or Cout > 128:
+        return None
+    cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
+    if cells <= _CHUNK_CELLS and _CHUNK_CELLS % cells == 0:
+        tiles = _CHUNK_CELLS // cells
+    elif cells % 16 == 0:
+        tiles = 1
+    else:
+        return None
+    if tiles * K > _MAX_NBR:
+        return None
+    chunk = tiles * cells
+    packed = Cin < 16
+    sa = Cin if packed else 24
+    mtiles = -(-K * Cin // 16) if packed else K
+    wm = 9 if mtiles >= 9 else 3 if mtiles >= 3 else 1
+    mw = -(-mtiles // wm)
+    if mw > 3:
+        return None
+    ext = -(-tiles * ecells * sa // 8) * 8
+    tables = -(-(ecells + chunk + tiles * K) * 4 // 16) * 16
+    n = Cout // 8
+    for d in range(n, 0, -1):
+        if n % d or mw * d * 4 > _MAX_ACC:
+            continue
+        if tables + (ext + chunk * (8 * d + 8)) * 2 <= _MAX_SMEM:
+            return DwPlan(8 * d, tiles, wm, mw)
+    return None
+
+
 def _check(x, g, halo, t, dim):
     B, T, cells, Cin = x.shape
     K, Cout = 3 ** dim, g.shape[-1]
@@ -58,9 +127,10 @@ def _check(x, g, halo, t, dim):
     if dim not in (2, 3) or cells != t ** dim or g.shape[:3] != x.shape[:3]:
         raise ValueError(f"halo_conv_dw: x {tuple(x.shape)}, g "
                          f"{tuple(g.shape)} do not fit t={t}, dim={dim}")
-    if Cout % 8 or Cout > 128:
-        raise ValueError(f"halo_conv_dw: the kernel takes Cout a multiple "
-                         f"of 8 up to 128, got {Cout}")
+    if dw_plan(t, dim, Cin, Cout) is None:
+        raise ValueError(f"halo_conv_dw: no plan for t={t}, dim={dim}, "
+                         f"Cin={Cin}, Cout={Cout} (the kernel takes Cout a "
+                         f"multiple of 8 up to 128, where its buffers fit)")
     shapes = [("idx", halo.idx, (B, K - 1, T), torch.int32),
               ("ok", halo.ok, (B, K - 1, T), torch.bool),
               ("blive", halo.blive, (B, T), torch.bool)]
@@ -95,4 +165,5 @@ def halo_conv_dw(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec, t: int,
             B, T, t, dim, Cin, Cout, torch.cuda.current_stream().cuda_stream)
     cuda.check(err, "halo_conv_dw")
     launches += 1
+    launches_by_shape[(t, Cin, Cout)] += 1
     return dw

@@ -7,17 +7,19 @@ torch version, on a CUDA tensor the hand-written kernel. `chip_smoke.py`
 puts the plain versions in place of the wrappers to run the same model as
 reference on the card.
 
-Two conv paths, chosen by `USE_FUSED` as the reference chooses them
-(`tile_conv.py:194-255`). Fused: inference runs every submanifold conv with
-its epilogue in kernel B (the reference declines its fused kernel for some
-(t, C) and falls back to conv + XLA epilogue, `tile_conv.py:292-302`; the
-Hopper kernel takes every shape, so there is no fallback), and training
-runs the raw conv through `halo_conv_op`, whose gradient is kernels B and
-C. Unfused: the halo extend (kernel D, gradient kernel E), one VALID conv
-over the extended tiles, and the epilogue in torch. Data moves between
-levels through the two link gathers, each the other's transpose, so the
-backward gathers too and never scatters. All ops keep the submanifold
-invariant: inactive cells hold exact zeros.
+Two conv paths, chosen per conv by `USE_FUSED` and a static shape rule,
+as the reference chooses them (`tile_conv.py:194-302`, declining its
+fused kernel by dtype and shape). Fused: inference runs a submanifold
+conv with its epilogue in kernel B, and training runs the raw conv
+through `halo_conv_op`, whose gradient is kernels B (d_x) and C (d_W).
+Kernels B and C take bfloat16 and only the widths they plan for
+(`kernel_plan` in `ops/cuda/halo_conv.py`, `dw_plan` in
+`ops/cuda/halo_conv_dw.py`), so on the card every other conv takes the
+unfused path: the halo extend (kernel D, gradient kernel E, any width),
+one VALID conv over the extended tiles, and the epilogue in torch. Data moves between levels through the two
+link gathers, each the other's transpose, so the backward gathers too
+and never scatters. All ops keep the submanifold invariant: inactive
+cells hold exact zeros.
 """
 
 from __future__ import annotations
@@ -28,8 +30,9 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (halo_conv,
-                                                          halo_conv_op)
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
+    halo_conv, halo_conv_op, kernel_plan)
+from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import dw_plan
 from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import halo26_extend_op
 from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import windowed_gather
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
@@ -88,18 +91,32 @@ def _corner_view(xc: torch.Tensor, tc: int, dim: int) -> torch.Tensor:
 # convolutions
 # ---------------------------------------------------------------------------
 
-# None = auto: kernel B (the fused conv) except for float32 on the card,
-# which kernel B does not take and which takes the unfused path (the
-# reference's dtype rule: f32 keeps its exact halo + conv path). On the CPU
-# auto runs kernel B's plain version for every dtype. Tests and
-# chip_smoke.py force a path by setting this.
+# None = auto: on the card, the fused path wherever its kernels take the
+# conv (`_fused`), else the unfused one, which takes every width and dtype
+# (the reference's rule: f32 keeps its exact halo + conv path, and shapes
+# its fused kernel declines take conv + XLA epilogue). On the CPU auto runs
+# kernel B's plain version for every shape and dtype. Tests and
+# chip_smoke.py force a path by setting this; forced True on a conv the
+# kernels refuse raises in their wrappers.
 USE_FUSED = None
 
 
-def _fused(x: torch.Tensor) -> bool:
+def _fused(x: torch.Tensor, t: int, dim: int, Cout: int, dx: bool = False,
+           dw: bool = False) -> bool:
+    """Whether a conv of x (.., Cin) to Cout channels takes the fused path:
+    on the card, where x is bfloat16 and kernel B takes the conv (Cin ->
+    Cout), and, where a gradient flows, kernel B its d_x (the flipped
+    stencil, Cout -> Cin) and kernel C its d_W. Decided from the shapes
+    alone, before any launch."""
     if USE_FUSED is not None:
         return USE_FUSED
-    return x.device.type != "cuda" or x.dtype == torch.bfloat16
+    if x.device.type != "cuda":
+        return True
+    Cin = x.shape[-1]
+    return (x.dtype == torch.bfloat16
+            and kernel_plan(t, dim, Cin, Cout) is not None
+            and not (dx and kernel_plan(t, dim, Cout, Cin) is None)
+            and not (dw and dw_plan(t, dim, Cin, Cout) is None))
 
 
 def _valid_conv(ext: torch.Tensor, w, t: int, dim: int) -> torch.Tensor:
@@ -130,7 +147,7 @@ def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
     """x (B,T,t^dim,Cin), occ (B,T,t^dim) -> (B,T,t^dim,Cout), masked by
     occupancy, with a gradient.
 
-    Fused (`USE_FUSED`): `halo_conv_op`, kernel B with kernels B and C as
+    Fused (`_fused`): `halo_conv_op`, kernel B with kernels B and C as
     its gradient. Unfused: the halo-extended tiles (`halo26_extend_op`,
     kernel D, whose gradient is kernel E), then one VALID conv over them.
 
@@ -144,7 +161,9 @@ def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
         o1 = submanifold_conv_tiled(x1, occ, halo, t, dim, w[:, :C1])
         o2 = submanifold_conv_tiled(x2, occ, halo, t, dim, w[:, C1:])
         return (o1.float() + o2.float()).to(o1.dtype)
-    if _fused(x):
+    grad = torch.is_grad_enabled()
+    if _fused(x, t, dim, w.shape[-1], dx=grad and x.requires_grad,
+              dw=grad and w.requires_grad):
         out = halo_conv_op(x.contiguous(), w.to(x.dtype).contiguous(),
                            halo.idx, halo.ok, halo.blive, t, dim)
     else:
@@ -161,7 +180,7 @@ def submanifold_conv_bn_act_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
     Fused: one kernel (B with its epilogue); `occ` is unused there (the
     mask carries it). Unfused: `submanifold_conv_tiled`, then the
     reference's epilogue (`tile_conv.py:299-302`) in the conv's dtype."""
-    if _fused(x):
+    if _fused(x, t, dim, w.shape[-1]):
         return halo_conv(x.contiguous(), w.to(x.dtype).contiguous(), halo, t,
                          dim, a=a.float().contiguous(),
                          b=b.float().contiguous(), alpha=alpha,
