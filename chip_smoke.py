@@ -9,14 +9,18 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
 1. holds kernels A and B against their plain torch versions at the shapes
    config-3 inference gives them (B at every conv shape of the forward:
    the stem, L0 and the decoder's L0 concat at t=4, L1-L4 and the decoder's
-   L3 concat at t=2; its launch plan against `kernel_plan`'s), and times
-   both with CUDA events;
+   L3 concat at t=2; its launch plan against `kernel_plan`'s; A's two link
+   directions at links 1-3 at widths 1, 48, 64 and 80, and in float32, at
+   a t_c=4 link of a global t=4 graph and at links of 2D graphs, and its
+   single-spec gather), and times them with CUDA events (A on the
+   device-only timer `device_ms`, beside `torch.gather` of the same rows);
 2. drives BASELINE config 3 (sparse U-ResNet inference, 512^3 events of
    ~1e5 voxels, batch 8, bf16, tile schedule (4,2,2,2,2); random weights
    from a seed) through `models.construct("uresnet_sparse")`: one
-   profiled forward (device time by kernel kind), then three timed
-   forwards whose kernel launches it counts, and compares the logits with
-   the same model on the plain versions;
+   profiled forward (device time by kernel kind, and the link ops' share),
+   then three timed forwards whose kernel launches it counts (kernel A's
+   exactly: 9 a forward, 21 a config-4 step, on every path), and compares
+   the logits with the same model on the plain versions;
 3. holds the backward's kernels against their plain versions on config
    4's real halo maps (batch 2): kernel C (d_W) at every conv shape of the
    step (its launch plan against `dw_plan`'s), timed, and kernel B as d_x
@@ -105,17 +109,18 @@ def config4():
                                remat_mode="stage_dots", learning_rate=0.001)
 
 
-def event_blob(cfg, batch):
+def event_blob(cfg, batch, mean_voxels: int = int(N_VOXELS * 1.5)):
     """bench.py's and run_all.py's events (`_event_blob(cfg, batch,
     150000)`): generator dedupe eats ~35%, so the target is 1.5x."""
     from uresnet_pytorch_tpu_torch.iotools.synthetic import generate_event
-    blob = {"coords": np.zeros((batch, cfg.max_voxels, 3), np.int32),
+    dim = cfg.data_dim
+    blob = {"coords": np.zeros((batch, cfg.max_voxels, dim), np.int32),
             "values": np.zeros((batch, cfg.max_voxels), np.float32),
             "label": np.zeros((batch, cfg.max_voxels), np.int32),
             "n_voxels": np.zeros((batch,), np.int32)}
     for b in range(batch):
-        c, v, l = generate_event(SEED, b, cfg.spatial_size, 3,
-                                 mean_voxels=int(N_VOXELS * 1.5))
+        c, v, l = generate_event(SEED, b, cfg.spatial_size, dim,
+                                 mean_voxels=mean_voxels)
         n = min(len(c), cfg.max_voxels)
         blob["coords"][b, :n], blob["values"][b, :n] = c[:n], v[:n]
         blob["label"][b, :n], blob["n_voxels"][b] = l[:n], n
@@ -150,12 +155,13 @@ def plain_versions():
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import (
         halo_conv_dw_plain)
     from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
-        windowed_gather_plain)
+        link_assemble_plain, link_parent_plain)
     from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
                                                     halo26_transpose)
     with mock.patch.object(tile_conv, "halo_conv", hc_mod.halo_conv_plain), \
-            mock.patch.object(tile_conv, "windowed_gather",
-                              windowed_gather_plain), \
+            mock.patch.object(tile_conv, "link_assemble",
+                              link_assemble_plain), \
+            mock.patch.object(tile_conv, "link_parent", link_parent_plain), \
             mock.patch.object(hc_mod, "halo_conv", hc_mod.halo_conv_plain), \
             mock.patch.object(hc_mod, "halo_conv_dw", halo_conv_dw_plain), \
             mock.patch.object(he_mod, "halo26_fwd", halo26_extend), \
@@ -171,7 +177,10 @@ def fused(on: bool):
 
 
 def time_ms(fn, iters: int = 5) -> float:
-    """Mean device time of fn over `iters` runs after one warm-up."""
+    """Mean time of fn over `iters` runs after one warm-up, CUDA events
+    around calls made from Python: for a kernel shorter than its wrapper's
+    host work the window measures the host (PERF.md section 7), so short
+    kernels are timed with `device_ms`."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -182,6 +191,57 @@ def time_ms(fn, iters: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, launches: int = 50, reps: int = 5) -> float:
+    """Median device time of one call of fn with no host work in the
+    window: `launches` calls are captured in one CUDA graph (each wrapper
+    launches on the current stream, so its ctypes launch is captured too)
+    and each of `reps` replays is timed with CUDA events. fn must not
+    synchronise; its inputs stay where the last call left them in L2."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    del graph
+    return float(np.median(times))
+
+
+@contextlib.contextmanager
+def link_ranges():
+    """Profiler ranges "link_assemble" and "link_parent" around the tile
+    conv's two link ops (forward, backward and recompute alike), so that a
+    profile can sum the device time of the kernels each launches."""
+    from uresnet_pytorch_tpu_torch.ops import tile_conv
+
+    def ranged(name, fn):
+        def run(*args, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*args, **kw)
+        return run
+    with mock.patch.object(tile_conv, "_assemble_impl",
+                           ranged("link_assemble", tile_conv._assemble_impl)), \
+            mock.patch.object(tile_conv, "_parent_corner_impl",
+                              ranged("link_parent",
+                                     tile_conv._parent_corner_impl)):
+        yield
 
 
 def halo_bytes(halo) -> int:
@@ -245,9 +305,11 @@ def check_halo_conv(name, level, t, cin, cout, rng, device):
 
 
 def check_gather(name, spec, src_rows, feat, rng, device):
-    """Kernel A vs its plain version on one real link spec: bitwise. Also
-    times torch.gather of the same rows (the mask left out) as the library
-    call."""
+    """Kernel A's single-spec gather (one octant) vs its plain version on
+    one real link spec: bitwise. Times both, and torch.gather of the same
+    rows (the mask left out) as the library call, on the device-only
+    timer. Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by,
+    library ms)."""
     from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
         windowed_gather, windowed_gather_plain)
     B, N = spec.idx.shape
@@ -260,20 +322,68 @@ def check_gather(name, spec, src_rows, feat, rng, device):
     err = float((got.float() - ref.float()).abs().max())
     served = int(spec.ok.sum())
     print(f"windowed_gather {name}: src {tuple(src.shape)} -> "
-          f"{tuple(got.shape)}, rows served {served}, "
-          f"bitwise equal: {same}")
-    require(same, f"windowed_gather {name} is not bitwise equal to plain")
-    ms = time_ms(lambda: windowed_gather(src, spec.idx, spec.ok))
+          f"{tuple(got.shape)}, rows served {served}, equal: {same}")
+    require(same, f"windowed_gather {name} is not equal to plain")
+    ms = device_ms(lambda: windowed_gather(src, spec.idx, spec.ok))
     plain_ms = time_ms(lambda: windowed_gather_plain(src, spec.idx, spec.ok))
     rows = torch.where(spec.ok, spec.idx, 0).long()[..., None].expand(
-        B, N, feat).contiguous()
-    library_ms = time_ms(lambda: torch.gather(src, 1, rows))
+        B, N, feat)
+    library_ms = device_ms(lambda: torch.gather(src, 1, rows))
     row_bytes = feat * src.element_size()
     bound_ms, by = bound(0, spec.idx.numel() * 4 + spec.ok.numel()
                          + served * row_bytes + B * N * row_bytes)
-    print(f"windowed_gather {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f}"
-          f" ms, torch.gather {library_ms:.3f} ms, bound {bound_ms:.4f} ms "
+    print(f"windowed_gather {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f}"
+          f" ms, torch.gather {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
           f"({by})")
+    return err, ms, plain_ms, bound_ms, by, library_ms
+
+
+def check_link(name, link, op, t_c, dim, C, rng, device,
+               dtype=torch.bfloat16):
+    """One link direction of kernel A (`link_assemble` or `link_parent`)
+    against its plain version (the per-octant loops) on a real link, with
+    torch.equal (the plain parent's sum turns -0.0 into +0.0). Times both,
+    and torch.gather of the same rows (the mask left out; from the corner
+    view for the parent side) as the library call, on the device-only
+    timer. Returns (max_abs_err, kernel ms, plain ms, bound ms, bound by,
+    library ms)."""
+    from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
+        corner_view, link_assemble, link_assemble_plain, link_parent,
+        link_parent_plain)
+    B, noct, Tc = link.cidx.shape
+    Tf = link.idx2.shape[1]
+    th = t_c // 2
+    if op == "assemble":
+        kern, plain = link_assemble, link_assemble_plain
+        x = rng.standard_normal((B, Tf, th ** dim, C), dtype=np.float32)
+        idx, ok = link.cidx.transpose(1, 2), link.cok.transpose(1, 2)
+    else:
+        kern, plain = link_parent, link_parent_plain
+        x = rng.standard_normal((B, Tc, t_c ** dim, C), dtype=np.float32)
+        idx, ok = link.idx2, link.pok
+    x = torch.from_numpy(x).to(device, dtype)
+    got, ref = kern(x, link, t_c, dim), plain(x, link, t_c, dim)
+    torch.cuda.synchronize()
+    same = got.shape == ref.shape and torch.equal(got, ref)
+    err = float((got.float() - ref.float()).abs().max())
+    served = int(ok.sum())
+    print(f"link_{op} {name}: {tuple(x.shape)} -> {tuple(got.shape)} "
+          f"{str(dtype)[6:]}, rows served {served}, equal to plain: {same}")
+    require(same, f"link_{op} {name} is not equal to plain")
+    ms = device_ms(lambda: kern(x, link, t_c, dim))
+    plain_ms = time_ms(lambda: plain(x, link, t_c, dim), iters=2)
+    src = x.reshape(B, Tf, -1) if op == "assemble" else \
+        corner_view(x, t_c, dim)
+    rows = torch.where(ok, idx, 0).reshape(B, -1).long()[..., None].expand(
+        B, idx[0].numel(), src.shape[-1])
+    library_ms = device_ms(lambda: torch.gather(src, 1, rows))
+    row_bytes = src.shape[-1] * x.element_size()
+    # the maps read once, each served source row read once, the output
+    # written once
+    bound_ms, by = bound(0, idx.numel() * 5 + served * row_bytes
+                         + got.numel() * got.element_size())
+    print(f"link_{op} {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+          f"torch.gather {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
     return err, ms, plain_ms, bound_ms, by, library_ms
 
 
@@ -565,16 +675,25 @@ def timed_steps(tv, blob, warm: int, timed: int):
     return losses, times, metrics
 
 
-def profile_run(fn, what: str, top: int = 12) -> None:
+# kernel A's device function, and that of the one-warp-per-row kernel A
+# that earlier trees launch, for profiles taken against them
+KERNEL_A_NAMES = ("link_gather_kernel", "gather_rows_kernel")
+
+
+def profile_run(fn, what: str, top: int = 12) -> dict:
     """torch.profiler over one call of fn: device time by kernel, summed
     by kind, and the device's busy share of the call's wall time. Only
     device-side kernel rows count: an operator's row repeats its kernels'
     time, and a user annotation's device row (`Optimizer.step#Adam.step`)
-    spans its kernels and the gaps between them."""
+    spans its kernels and the gaps between them. The link movement is the
+    device time of kernel A and of the torch passes that the link ops
+    (`link_ranges`) run around it. Returns the wall and busy ms, ms by
+    kind, the link ranges' (torch passes' device ms, calls) and the link
+    movement's ms."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with link_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -591,7 +710,7 @@ def profile_run(fn, what: str, top: int = 12) -> None:
         low = key.lower()
         kind = ("kernel C" if "halo_conv_dw_kernel" in key else
                 "kernel B" if "halo_conv_kernel" in key else
-                "kernel A" if "gather_rows_kernel" in key else
+                "kernel A" if any(n in key for n in KERNEL_A_NAMES) else
                 "kernel D" if "halo_extend_kernel" in key else
                 "kernel E" if "halo_transpose_kernel" in key else
                 "cuDNN convs" if any(w in low for w in
@@ -600,12 +719,36 @@ def profile_run(fn, what: str, top: int = 12) -> None:
                                     ("gemm", "xmma", "cutlass")) else
                 "other torch kernels")
         kinds[kind] += ms
+    # the torch kernels each link range launched, from its host-side
+    # event (a range's device-side row would also count the gaps); kernel
+    # A's ctypes launches are not tied to the range, and it runs nowhere
+    # else, so all of its time is added
+    def launched(ev):
+        yield from ev.kernels
+        for child in ev.cpu_children:
+            yield from launched(child)
+    links = {}
+    for ev in prof.events():
+        if ev.name in ("link_assemble", "link_parent") \
+                and ev.device_type == DeviceType.CPU:
+            ms, n = links.get(ev.name, (0.0, 0))
+            links[ev.name] = (ms + sum(
+                k.duration for k in launched(ev)
+                if not any(a in k.name for a in KERNEL_A_NAMES)) / 1e3, n + 1)
     busy = sum(kinds.values())
+    torch_ms = sum(v[0] for v in links.values())
+    link_ms = torch_ms + kinds["kernel A"]
     print(f"profiled {what}: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms "
           f"({busy / wall_ms:.1%}); by kind: "
           + ", ".join(f"{k} {v:.1f} ms" for k, v in kinds.items()))
+    print(f"  link movement {link_ms:.3f} ms: kernel A {kinds['kernel A']:.3f}"
+          f" ms + torch passes in the link ops {torch_ms:.3f} ms ("
+          + ", ".join(f"{k} {v[0]:.3f} ms in {v[1]} calls"
+                      for k, v in sorted(links.items())) + ")")
     for ms, n, key in rows[:top]:
         print(f"  {ms:9.3f} ms {n:6d} calls  {key[:100]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "kinds": kinds,
+            "links": links, "link_torch_ms": torch_ms, "link_ms": link_ms}
 
 
 def main() -> int:
@@ -635,6 +778,14 @@ def main() -> int:
         for m, attr in counters.values():
             setattr(m, attr, 0)
         dw_mod.launches_by_shape.clear()
+        wg_mod.launches_by_op.update(dict.fromkeys(wg_mod.launches_by_op, 0))
+
+    def require_a(n: int, got: dict, what: str) -> None:
+        """Kernel A launches once a link op: the graph build's occupancy
+        assemble, and each down and up link, at links 1-3."""
+        require(got["windowed_gather"] == n,
+                f"expected {n} kernel-A launches in {what}, got "
+                f"{got['windowed_gather']} ({dict(wg_mod.launches_by_op)})")
 
     def counts():
         return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
@@ -682,14 +833,49 @@ def main() -> int:
     print("halo_conv per shape (bn_act ms, plain ms, bound ms): " + "; ".join(
         f"{k} {r[1]:.3f} / {r[2]:.3f} / {r[3]:.4f}"
         for k, r in halo_res.items()))
-    link = graph.links[1]      # levels 1 -> 2, a real link (link 0 is
-    #                            the identity of the 4 -> 2 tile halving)
+    # kernel A: the single-spec gather (one octant) at link 1, levels 1 ->
+    # 2 (link 0 is the identity of the 4 -> 2 tile halving); both link
+    # directions at links 1-3 at the widths the path moves (the graph
+    # build's occupancy 1; the encoder's and decoder's 48, 64, 80), and in
+    # float32 (the card's f32 path); at a t_c=4 link of a global t=4 graph
+    # of the same events; at t_c=2 and t_c=4 links of 2D graphs
+    link = graph.links[1]
     Tf, Tc = lv[1].keys.shape[1], lv[2].keys.shape[1]
-    gather_res = [check_gather("link1 child[0] F=48", link.children[0], Tf,
-                               48, rng, device),
-                  check_gather("link1 parent[0] F=48", link.parents[0],
-                               Tc * 8, 48, rng, device)]
-    del graph, lv, link
+    gather_res = {"link1 child[0] F=48": check_gather(
+        "link1 child[0] F=48", link.children[0], Tf, 48, rng, device),
+        "link1 parent[0] F=48": check_gather(
+            "link1 parent[0] F=48", link.parents[0], Tc * 8, 48, rng,
+            device)}
+    link_checks = [(f"link{l} {op} C={c}", graph.links[l], op, 2, 3, c,
+                    torch.bfloat16)
+                   for l, w in ((1, 48), (2, 64), (3, 80))
+                   for op, c in (("assemble", 1), ("assemble", w),
+                                 ("parent", 1), ("parent", w))]
+    link_checks += [(f"link1 {op} C=48 f32", link, op, 2, 3, 48,
+                     torch.float32) for op in ("assemble", "parent")]
+    del lv
+    with torch.no_grad():
+        links4 = build_tile_graph(coords, values, nv, dataclasses.replace(
+            cfg, tile_sizes=None)).links
+    link_checks += [(f"t=4 link1 {op} C={c}", links4[1], op, 4, 3, c,
+                     torch.bfloat16)
+                    for op, c in (("assemble", 1), ("assemble", 48),
+                                  ("parent", 48))]
+    for tiles in ((4, 2, 2, 2, 2), None):
+        cfg2 = dataclasses.replace(cfg, data_dim=2, tile_sizes=tiles,
+                                   max_voxels=16384)
+        blob2 = event_blob(cfg2, 2, mean_voxels=12000)
+        with torch.no_grad():
+            link2 = build_tile_graph(*(torch.from_numpy(blob2[k]).to(device)
+                                       for k in ("coords", "values",
+                                                 "n_voxels")), cfg2).links[1]
+        t_c = 2 if tiles else 4
+        link_checks += [(f"2d t=4 link1 {op} C=16" if t_c == 4 else
+                         f"2d link1 {op} C=16", link2, op, t_c, 2, 16,
+                         torch.bfloat16) for op in ("assemble", "parent")]
+    link_res = {name: check_link(name, lk, op, t_c, d, c, rng, device, dt)
+                for name, lk, op, t_c, d, c, dt in link_checks}
+    del graph, link, links4, link2, link_checks
 
     # -- phase 2: config-3 inference through the model entry point ---------
     variables = init_params(cfg, torch.Generator().manual_seed(SEED))
@@ -717,8 +903,9 @@ def main() -> int:
     require(infer_launches["halo_conv"] == 37 * 3,
             f"expected 37 halo_conv launches per forward, got "
             f"{infer_launches['halo_conv']} in 3")
-    require(infer_launches["windowed_gather"] > 0,
-            "no windowed_gather launch")
+    print(f"kernel A by entry point: {dict(wg_mod.launches_by_op)}")
+    require_a(9 * 3, infer_launches, "3 forwards (3 occupancy + 3 down + "
+              "3 up a forward)")
     require(infer_launches["halo_conv_dw"] == 0,
             "inference launched the weight-gradient kernel")
     diag = {k: int(v) for k, v in diag.items()}
@@ -831,8 +1018,8 @@ def main() -> int:
     require(train_launches["halo_conv_dw"] == 41,
             f"expected 41 halo_conv_dw launches per step, got "
             f"{train_launches['halo_conv_dw']}")
-    require(train_launches["windowed_gather"] > 0,
-            "no windowed_gather launch in the step")
+    require_a(21, train_launches, "the step (9 forward, 6 recomputed, 6 "
+              "backward)")
     torch.cuda.reset_peak_memory_stats()
     more, times, metrics = timed_steps(tv, blob, 1, 3)
     peak_dots = torch.cuda.max_memory_allocated()
@@ -930,6 +1117,7 @@ def main() -> int:
             and bool(torch.isfinite(logits).all())
             and bool((logits[~valid] == 0).all()),
             "unfused logits: wrong shape, non-finite or nonzero padding")
+    require_a(9 * 3, unfused_launches, "3 unfused forwards")
     compare_logits(logits, ref, valid, "unfused vs fused kernel logits")
     ms_unfused = sorted(times)[1]
     print(f"unfused forward (graph build included), 3 runs: "
@@ -968,6 +1156,7 @@ def main() -> int:
     print(f"f32 auto vs plain f32 logits: max|delta| {err32:.3e}, max|ref| "
           f"{scale32:.3e}")
     require(err32 <= 1e-4 * scale32, "f32 logits disagree with plain f32")
+    require_a(9, f32_launches, "the f32 forward")
     del model, out32, ref32, coords, values, nv, valid
     torch.cuda.empty_cache()
 
@@ -1036,8 +1225,7 @@ def main() -> int:
         require(unfused_train["halo_conv"] == 0
                 and unfused_train["halo_conv_dw"] == 0,
                 "the unfused step launched kernel B or C")
-        require(unfused_train["windowed_gather"] > 0,
-                "no windowed_gather launch in the unfused step")
+        require_a(21, unfused_train, "the unfused step")
         torch.cuda.reset_peak_memory_stats()
         more, times, metrics = timed_steps(tv, blob, 1, 3)
         peak_u_dots = torch.cuda.max_memory_allocated()
@@ -1089,6 +1277,7 @@ def main() -> int:
     require(f12_infer["halo_conv"] == 16 and f12_infer["halo26_fwd"] == 21,
             "expected 16 fused and 21 unfused convs in the filters=12 "
             "forward")
+    require_a(9, f12_infer, "the filters=12 forward")
     valid = torch.arange(cfg12.max_voxels, device=device)[None] < nv[:, None]
     require(int(diag["overflow"]) == 0 and bool(torch.isfinite(logits).all())
             and bool((logits[~valid] == 0).all()),
@@ -1108,6 +1297,7 @@ def main() -> int:
             == (36, 18, 45, 22),
             "expected B 36 (18 forward + 18 d_x), C 18, D 45 (23 forward + "
             "22 recomputed) and E 22 launches in the filters=12 step")
+    require_a(21, f12_train, "the filters=12 step")
     torch.cuda.empty_cache()
 
     paths = {"inference_3_forwards": infer_launches,
@@ -1126,6 +1316,7 @@ def main() -> int:
                     "bound_ms": r[3]} for k, r in res.items()}
 
     dw0 = dw_res["L0 t=4 16->16"]
+    a0 = link_res["link1 assemble C=48"]
     b0 = halo_res["L0 t=4 16->16"]
     kernels = [
         {"name": "halo_conv", "route": "cuda",
@@ -1168,12 +1359,18 @@ def main() -> int:
          "source": "uresnet_pytorch_tpu_torch/csrc/windowed_gather.cu",
          "replaces":
              "uresnet_pytorch_tpu/ops/pallas/windowed_gather.py:104",
+         "also_replaces": [
+             "uresnet_pytorch_tpu/ops/tile_conv.py:305 _assemble_impl",
+             "uresnet_pytorch_tpu/ops/tile_conv.py:322 _parent_corner_impl"],
          "launches": train_launches["windowed_gather"],
          "launches_by_path": by_path("windowed_gather"),
-         "max_abs_err": max(r[0] for r in gather_res),
-         "ms": gather_res[0][1], "plain_ms": gather_res[0][2],
-         "bound_ms": gather_res[0][3], "bound_by": gather_res[0][4],
-         "library_ms": gather_res[0][5]},
+         "max_abs_err": max(r[0] for r in (*gather_res.values(),
+                                           *link_res.values())),
+         "ms": a0[1], "plain_ms": a0[2], "bound_ms": a0[3],
+         "bound_by": a0[4], "library_ms": a0[5],
+         "by_link": {k: {"ms": r[1], "plain_ms": r[2], "bound_ms": r[3],
+                         "bound_by": r[4], "library_ms": r[5]}
+                     for k, r in (*link_res.items(), *gather_res.items())}},
     ]
     # kernels D and E: launches on their main path (the unfused step),
     # times at config 3's L0 t=4 C=16 bf16, the other shapes beside

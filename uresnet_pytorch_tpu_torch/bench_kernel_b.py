@@ -1,7 +1,6 @@
-"""Times kernel B (the fused halo conv) or kernel C (its weight gradient)
-of several source trees in turns on one card, at every shape the
-config-3 forward and the config-4 step give it, and kernel A's link
-gathers beside `torch.gather`.
+"""Times kernel B (the fused halo conv), kernel C (its weight gradient)
+or kernel A (the link gathers) of several source trees in turns on one
+card, at the shapes the config-3 forward and the config-4 step give it.
 
     python -m uresnet_pytorch_tpu_torch.bench_kernel_b \
         [--tree NAME=DIR ...] [--rounds 2] [--check NAME ...] [--dw]
@@ -10,22 +9,27 @@ gathers beside `torch.gather`.
 A tree is a directory holding a `uresnet_pytorch_tpu_torch` package (a
 checkout, or a copy of the package with an edited `csrc/`); `this` is the
 tree this module belongs to and is always timed. Each tree runs in a
-process of its own, which imports that tree's package, builds its kernels
-(all trees' builds start together; a tree that does not build is
-reported, left out, and makes the run exit 1) and times its `halo_conv`
-wrapper with CUDA events: the mean of 20 launches after 3 warm-ups, on
-random bf16 inputs made from one seed, on the real halo maps of config 3
-(batch 8) and config 4 (batch 2, d_x on flipped weights). `--dw` times its
-`halo_conv_dw` wrapper instead, at the six weight-gradient shapes of a
-config-4 step. The trees run in the order given and then in reverse,
-`rounds` times, so a drift of the card falls on every tree alike.
-`--check NAME` holds that tree's kernel to its plain version at every
-shape first (the bounds of `chip_smoke.py`: bf16 for B, `DW_RTOL` for C);
-`--gather` also times kernel A against `torch.gather` on link 1, five
-times per process. `--step` instead profiles one config-4 training step
-per process (after two warm-ups; `torch.profiler`, device time by kernel
-name) and lists the kernels whose time differs most between the trees. The table goes to stdout and every timing, as JSON,
-to `--out` (default `build/bench_kernel_b.json`).
+process of its own, which imports that tree's package (and this tree's
+`chip_smoke.py`), builds its kernels (all trees' builds start together; a
+tree that does not build is reported, left out, and makes the run exit 1)
+and times its `halo_conv` wrapper with CUDA events: the mean of 20
+launches after 3 warm-ups, on random bf16 inputs made from one seed, on
+the real halo maps of config 3 (batch 8) and config 4 (batch 2, d_x on
+flipped weights). `--dw` times its `halo_conv_dw` wrapper instead, at the
+six weight-gradient shapes of a config-4 step. The trees run in the order
+given and then in reverse, `rounds` times, so a drift of the card falls on
+every tree alike. `--check NAME` holds that tree's kernel to its plain
+version at every shape first (the bounds of `chip_smoke.py`: bf16 for B,
+`DW_RTOL` for C). `--gather` instead times kernel A's one-octant gather at
+link 1 against `torch.gather` with both timers (CUDA events around calls
+from Python, and `chip_smoke.device_ms`, which replays a CUDA graph), the
+nine link ops of a config-3 forward whole on the device-only timer, and
+profiles one config-3 forward and one config-4 step (the link movement:
+device time of the kernels inside the link ops). `--step` instead
+profiles one config-4 training step per process (after two warm-ups;
+`torch.profiler`, device time by kernel name) and lists the kernels whose
+time differs most between the trees. The table goes to stdout and every
+timing, as JSON, to `--out` (default `build/bench_kernel_b.json`).
 """
 
 from __future__ import annotations
@@ -57,6 +61,26 @@ DW_SHAPES = [("stem L0 t=4 1->16", 0, 4, 1, 16),
              ("L2 t=2 48->48", 2, 2, 48, 48),
              ("dec pair half L3 t=2 64->64", 3, 2, 64, 64),
              ("L4 t=2 80->80", 4, 2, 80, 80)]
+
+# kernel A's link ops on config 3's graph, as a forward runs them: (link,
+# op, channels); the graph build's occupancy assembles one channel, the
+# encoder's down link and the decoder's up link the coarse level's width
+LINK_OPS = [(l, op, c) for l, w in ((1, 48), (2, 64), (3, 80))
+            for op, c in (("assemble", 1), ("assemble", w), ("parent", w))]
+
+
+def _smoke():
+    """This tree's `chip_smoke` (configurations, events, timers, profile),
+    whichever tree's package is under test: a tree's own copy of the
+    script would shadow it on sys.path."""
+    import importlib.util
+    if "chip_smoke" not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            "chip_smoke", ROOT / "chip_smoke.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules["chip_smoke"] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules["chip_smoke"]
 
 
 def _time_ms(fn, iters: int = 20, warm: int = 3) -> float:
@@ -95,7 +119,7 @@ def _inputs(level, t, cin, cout, seed):
 def _config4_graph(device):
     import torch
 
-    import chip_smoke
+    chip_smoke = _smoke()
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     blob = chip_smoke.event_blob(chip_smoke.config4(), chip_smoke.BATCH4)
     with torch.no_grad():
@@ -109,7 +133,7 @@ def worker_dw(check: bool) -> dict:
     import numpy as np
     import torch
 
-    import chip_smoke
+    chip_smoke = _smoke()
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw
     device = torch.device("cuda", 0)
     graph = _config4_graph(device)
@@ -150,7 +174,7 @@ def worker_step() -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import chip_smoke
+    chip_smoke = _smoke()
     from uresnet_pytorch_tpu_torch import trainval
     from uresnet_pytorch_tpu_torch.utils.weights import init_params
     cfg = chip_smoke.config4()
@@ -170,6 +194,141 @@ def worker_step() -> dict:
             and not e.is_user_annotation
             and e.self_device_time_total > 0}
     return {"package": trainval.__file__, "kernels": rows}
+
+
+def worker_gather() -> dict:
+    """Kernel A and the link ops of this process's package on config 3's
+    graph: the one-octant gather at link 1 (child and parent side) and
+    `torch.gather` of the same rows, five times each with CUDA events
+    around 20 calls from Python (`_time_ms`) and with the device-only
+    timer (`device_ms`); each link op of LINK_OPS whole (kernel and torch
+    passes), device-only; then one profiled config-3 forward and one
+    profiled config-4 step (link movement and device work), and the host
+    times of 5 forwards and 5 steps."""
+    import numpy as np
+    import torch
+
+    smoke = _smoke()
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.ops import tile_conv as tc
+    from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
+        windowed_gather)
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    device = torch.device("cuda", 0)
+    cfg = smoke.config3()
+    coords, values, nv = smoke.events(cfg, device)
+    with torch.no_grad():
+        graph = build_tile_graph(coords, values, nv, cfg)
+    lv = graph.levels
+    rng = np.random.default_rng(0)
+    out = {"package": tc.__file__, "single": {}, "links": {}}
+    link = graph.links[1]
+    for name, spec, rows in (
+            ("link1 child[0]", link.children[0], lv[1].keys.shape[1]),
+            ("link1 parent[0]", link.parents[0], lv[2].keys.shape[1] * 8)):
+        src = torch.from_numpy(rng.standard_normal(
+            (spec.idx.shape[0], rows, 48), dtype=np.float32)).to(
+                device, torch.bfloat16)
+        flat = torch.where(spec.ok, spec.idx, 0).long()[..., None]
+        flat = flat.expand(*spec.idx.shape, 48).contiguous()
+        fns = {"kernel": lambda: windowed_gather(src, spec.idx, spec.ok),
+               "torch.gather": lambda: torch.gather(src, 1, flat)}
+        res = {f"{k} {timer}": [] for k in fns for timer in ("events",
+                                                            "device")}
+        for _ in range(5):
+            for k, fn in fns.items():
+                res[f"{k} events"].append(_time_ms(fn))
+                res[f"{k} device"].append(smoke.device_ms(fn))
+        out["single"][name] = res
+    with torch.no_grad():
+        for l, op, c in LINK_OPS:
+            link = graph.links[l]
+            B, T = lv[l + (op == "parent")].keys.shape
+            x = torch.from_numpy(rng.standard_normal(
+                (B, T, 1 if op == "assemble" else 8, c),
+                dtype=np.float32)).to(device, torch.bfloat16)
+            fn = (tc._AssembleChildrenLink if op == "assemble"
+                  else tc._ParentCornerLink).apply
+            out["links"][f"link{l} {op} C={c}"] = [
+                smoke.device_ms(lambda: fn(x, link, 2, 3)) for _ in range(3)]
+    del graph, lv, link
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, init_params(cfg, torch.Generator().manual_seed(
+        smoke.SEED)))
+    with torch.no_grad():
+        model(coords, values, nv)
+        out["forward_profile"] = smoke.profile_run(
+            lambda: model(coords, values, nv), "config-3 forward", top=0)
+        out["forward_ms"] = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(coords, values, nv)
+            end.record()
+            torch.cuda.synchronize()
+            out["forward_ms"].append(start.elapsed_time(end))
+    del model, coords, values, nv
+    torch.cuda.empty_cache()
+    cfg4 = smoke.config4()
+    blob = smoke.event_blob(cfg4, smoke.BATCH4)
+    tv = TrainVal(cfg4)
+    tv.initialize(init_params(cfg4, torch.Generator().manual_seed(cfg4.seed)))
+    _, out["step_ms"], _ = smoke.timed_steps(tv, blob, 2, 5)
+    out["step_profile"] = smoke.profile_run(lambda: tv.train_step(blob),
+                                            "config-4 step", top=0)
+    return out
+
+
+def _gather_table(order: list, runs: dict) -> dict:
+    """Prints, per tree, the medians and ranges of worker_gather's timings
+    (each process's median of its five repeats for the single-spec
+    gather), and returns them."""
+    def med(vals):
+        return statistics.median(vals) if vals else None
+
+    table = {}
+    for n in order:
+        rs = runs[n]
+        t = {"single": {}, "links": {}}
+        for name, res in rs[0]["single"].items():
+            for key in res:
+                per_proc = [statistics.median(r["single"][name][key])
+                            for r in rs]
+                t["single"][f"{name} {key}"] = per_proc
+        for op in rs[0]["links"]:
+            t["links"][op] = med([v for r in rs for v in r["links"][op]])
+        for key in ("forward", "step"):
+            prof = [r[f"{key}_profile"] for r in rs]
+            t[f"{key}_link_ms"] = [p["link_ms"] for p in prof]
+            t[f"{key}_link_torch_ms"] = [p["link_torch_ms"] for p in prof]
+            t[f"{key}_busy_ms"] = [p["busy_ms"] for p in prof]
+            t[f"{key}_kernel_a_ms"] = [p["kinds"]["kernel A"] for p in prof]
+            t[f"{key}_ms"] = [v for r in rs for v in r[f"{key}_ms"]]
+        table[n] = t
+        print(f"{n}: single-spec gather, median per process (ms):")
+        for k, v in t["single"].items():
+            print(f"  {k:40s} " + " ".join(f"{x:.4f}" for x in v)
+                  + f"  spread x{max(v) / min(v):.2f}")
+        print(f"{n}: link ops, device-only median (ms): " + "; ".join(
+            f"{k} {v:.4f}" for k, v in t["links"].items())
+            + f"; sum {sum(t['links'].values()):.4f}")
+        for key in ("forward", "step"):
+            print(f"{n}: profiled {key}: link movement "
+                  + ", ".join(f"{v:.3f}" for v in t[f"{key}_link_ms"])
+                  + " ms (kernel A " + ", ".join(
+                      f"{v:.3f}" for v in t[f"{key}_kernel_a_ms"])
+                  + "; torch passes " + ", ".join(
+                      f"{v:.3f}" for v in t[f"{key}_link_torch_ms"])
+                  + "), device work " + ", ".join(
+                      f"{v:.1f}" for v in t[f"{key}_busy_ms"])
+                  + f" ms; {key} host-timed median "
+                  f"{med(t[f'{key}_ms']):.1f} ms [{min(t[f'{key}_ms']):.1f}"
+                  f", {max(t[f'{key}_ms']):.1f}]")
+    return table
 
 
 def _step_table(order: list, runs: dict, top: int = 15) -> dict:
@@ -196,11 +355,11 @@ def _step_table(order: list, runs: dict, top: int = 15) -> dict:
     return med
 
 
-def worker(check: bool, gather: bool) -> dict:
+def worker(check: bool) -> dict:
     """Times this process's package (the first on sys.path)."""
     import torch
 
-    import chip_smoke
+    chip_smoke = _smoke()
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     device = torch.device("cuda", 0)
@@ -236,28 +395,6 @@ def worker(check: bool, gather: bool) -> dict:
                 out["errors"][f"{name} {form}"] = str(e)
                 res[form] = None
         out["shapes"][name] = res
-    if gather:
-        from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
-            windowed_gather)
-        import numpy as np
-        lv, link = graphs[3].levels, graphs[3].links[1]
-        rng = np.random.default_rng(0)
-        out["gather"] = {}
-        for name, spec, rows in (
-                ("link1 child", link.children[0], lv[1].keys.shape[1]),
-                ("link1 parent", link.parents[0], lv[2].keys.shape[1] * 8)):
-            B = spec.idx.shape[0]
-            src = torch.from_numpy(rng.standard_normal(
-                (B, rows, 48), dtype=np.float32)).to(device, torch.bfloat16)
-            flat = torch.where(spec.ok, spec.idx, 0).long()[..., None]
-            flat = flat.expand(*spec.idx.shape, 48).contiguous()
-            times = {"kernel": [], "torch.gather": []}
-            for _ in range(5):
-                times["kernel"].append(_time_ms(
-                    lambda: windowed_gather(src, spec.idx, spec.ok)))
-                times["torch.gather"].append(_time_ms(
-                    lambda: torch.gather(src, 1, flat)))
-            out["gather"][name] = times
     return out
 
 
@@ -298,7 +435,9 @@ def main(argv=None) -> int:
                    help="NAME=DIR, a tree to time beside this one")
     p.add_argument("--rounds", type=int, default=2)
     p.add_argument("--check", action="append", default=[])
-    p.add_argument("--gather", action="store_true")
+    p.add_argument("--gather", action="store_true",
+                   help="time kernel A and the link ops instead, and "
+                   "profile their share of a forward and a step")
     p.add_argument("--dw", action="store_true",
                    help="time kernel C (d_W) instead of kernel B")
     p.add_argument("--step", action="store_true",
@@ -310,8 +449,9 @@ def main(argv=None) -> int:
     if args.worker:
         sys.path[:1] = [args.worker, str(ROOT)]
         res = worker_step() if args.step else \
+            worker_gather() if args.gather else \
             worker_dw(bool(args.check)) if args.dw else \
-            worker(bool(args.check), args.gather)
+            worker(bool(args.check))
         print("RESULT", json.dumps(res))
         return 0
     trees = {"this": ROOT}
@@ -331,6 +471,13 @@ def main(argv=None) -> int:
                        args.gather, args.dw, args.step)
             runs[name].append(res)
             print(f"round {r} {name}: done", flush=True)
+    if args.gather:
+        table = _gather_table(order, runs)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(
+            {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
+             "gather": table, "runs": runs}, indent=1))
+        return 1 if broken else 0
     if args.step:
         table = _step_table(order, runs)
         args.out.parent.mkdir(parents=True, exist_ok=True)
@@ -372,16 +519,6 @@ def main(argv=None) -> int:
                   f"within the bound, max|err| "
                   f"{max(c[3] for c in checks):.3e}"
                   + "".join(f"; FAILED {s} {form}" for s, form, *_ in bad))
-    for g in ("link1 child", "link1 parent"):
-        ks = [v for n in order for r in runs[n] if "gather" in r
-              for v in r["gather"][g]["kernel"]]
-        ls = [v for n in order for r in runs[n] if "gather" in r
-              for v in r["gather"][g]["torch.gather"]]
-        if ks:
-            print(f"gather {g}: kernel A median {statistics.median(ks):.4f} "
-                  f"ms [{min(ks):.4f}, {max(ks):.4f}], torch.gather median "
-                  f"{statistics.median(ls):.4f} ms [{min(ls):.4f}, "
-                  f"{max(ls):.4f}], {len(ks)} timings each")
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(
         {"device": smi, "trees": {n: str(d) for n, d in trees.items()},

@@ -43,7 +43,8 @@ _SIGNATURES = {
     "halo_conv_plan": [_I, _I, _I, _I, _I],
     "halo_conv_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_conv_dw_plan": [_I, _I, _I, _I, _I],
-    "gather_rows": [_P, _P, _P, _P, _I, _I, _I, ctypes.c_longlong, _I, _P],
+    "link_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "link_parent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_extend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }

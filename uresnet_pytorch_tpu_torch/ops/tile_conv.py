@@ -25,7 +25,6 @@ cells hold exact zeros.
 from __future__ import annotations
 
 import contextlib
-from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,9 +33,9 @@ from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
     halo_conv, halo_conv_op, kernel_plan)
 from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import dw_plan
 from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import halo26_extend_op
-from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import windowed_gather
+from uresnet_pytorch_tpu_torch.ops.cuda.windowed_gather import (
+    link_assemble, link_parent)
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
-from uresnet_pytorch_tpu_torch.ops.tile_graph import GatherSpec
 
 
 # ---------------------------------------------------------------------------
@@ -73,18 +72,6 @@ def unfold2(x: torch.Tensor) -> torch.Tensor:
     perm += [2 + 2 * dim]
     return x.permute(perm).reshape(
         (B, T) + tuple(2 * s for s in sp) + (C,))
-
-
-def _corner_view(xc: torch.Tensor, tc: int, dim: int) -> torch.Tensor:
-    """(B, Tc, tc^dim, C) -> (B, Tc*2^dim, (tc/2)^dim * C): contiguous corner
-    half-regions, corner bits x-major (matches the parent spec rows)."""
-    B, Tc = xc.shape[:2]
-    C = xc.shape[-1]
-    th = tc // 2
-    x = xc.reshape((B, Tc) + (2, th) * dim + (C,))
-    perm = [0, 1] + [2 + 2 * d for d in range(dim)] \
-        + [3 + 2 * d for d in range(dim)] + [2 + 2 * dim]
-    return x.permute(perm).reshape(B, Tc * 2 ** dim, th ** dim * C)
 
 
 # ---------------------------------------------------------------------------
@@ -192,48 +179,28 @@ def submanifold_conv_bn_act_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
     return z * mask[..., None].to(z.dtype)
 
 
-def _assemble_impl(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],
-                   t_c: int, dim: int) -> torch.Tensor:
-    B, Tf, cells_h, C = blocks.shape
-    th = t_c // 2
-    flat = blocks.reshape(B, Tf, cells_h * C)
-    Tc = children[0].idx.shape[1]
-    out = blocks.new_zeros((B, Tc) + (t_c,) * dim + (C,))
-    for o, spec in enumerate(children):
-        obits = [(o >> (dim - 1 - d)) & 1 for d in range(dim)]
-        g = windowed_gather(flat, spec.idx, spec.ok).reshape(
-            (B, Tc) + (th,) * dim + (C,))
-        sl = (slice(None), slice(None)) + tuple(
-            slice(bit * th, (bit + 1) * th) for bit in obits)
-        out[sl] = g
-    return out.reshape(B, Tc, t_c ** dim, C)
+def _assemble_impl(blocks: torch.Tensor, link, t_c: int,
+                   dim: int) -> torch.Tensor:
+    """Per-fine-tile half-blocks (B, Tf, (t_c/2)^dim, C) -> coarse tiles
+    (B, Tc, t_c^dim, C): each coarse tile pulls its children's blocks into
+    its octants (kernel A, one launch for every octant)."""
+    return link_assemble(blocks, link, t_c, dim)
 
 
 def _parent_corner_impl(xc: torch.Tensor, link, t_c: int,
                         dim: int) -> torch.Tensor:
     """(B, Tc, t_c^dim, C) coarse tiles -> (B, Tf, (t_c/2)^dim, C): each
-    fine tile pulls its corner of its parent from the coarse corner view,
-    one gather per octant. The octant specs have disjoint valid rows, so
-    their results sum."""
-    th = t_c // 2
-    C = xc.shape[-1]
-    cv = _corner_view(xc, t_c, dim)
-    out = None
-    for spec in link.parents:
-        g = windowed_gather(cv, spec.idx, spec.ok)
-        out = g if out is None else out + g
-    B, Tf = out.shape[:2]
-    return out.reshape(B, Tf, th ** dim, C)
+    fine tile pulls its corner of its parent (kernel A, one launch)."""
+    return link_parent(xc, link, t_c, dim)
 
 
-def assemble_children(blocks: torch.Tensor, children: Tuple[GatherSpec, ...],
-                      t_c: int, dim: int) -> torch.Tensor:
-    """Per-fine-tile half-blocks (B, Tf, (t_c/2)^dim, C) -> coarse tiles
-    (B, Tc, t_c^dim, C); an identity link returns the blocks. No gradient:
-    the graph build's occupancy."""
-    if len(children) == 1:
+def assemble_children(blocks: torch.Tensor, link, t_c: int,
+                      dim: int) -> torch.Tensor:
+    """`_assemble_impl` over `link`; an identity link returns the blocks.
+    No gradient: the graph build's occupancy."""
+    if len(link.children) == 1:
         return blocks
-    return _assemble_impl(blocks, children, t_c, dim)
+    return _assemble_impl(blocks, link, t_c, dim)
 
 
 class _AssembleChildrenLink(torch.autograd.Function):
@@ -245,7 +212,7 @@ class _AssembleChildrenLink(torch.autograd.Function):
     @staticmethod
     def forward(ctx, blocks, link, t_c, dim):
         ctx.link, ctx.t_c, ctx.dim = link, t_c, dim
-        return _assemble_impl(blocks, link.children, t_c, dim)
+        return _assemble_impl(blocks, link, t_c, dim)
 
     @staticmethod
     def backward(ctx, g):
@@ -263,8 +230,8 @@ class _ParentCornerLink(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return (_assemble_impl(g.contiguous(), ctx.link.children, ctx.t_c,
-                               ctx.dim), None, None, None)
+        return (_assemble_impl(g.contiguous(), ctx.link, ctx.t_c, ctx.dim),
+                None, None, None)
 
 
 def downsample_conv_tiled(x, link, t_f: int, t_c: int, dim: int,

@@ -14,7 +14,7 @@ an in-window part plus a correction list for its one-hot TPU gathers
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,14 @@ class TileDownLink(NamedTuple):
     parents: Tuple[GatherSpec, ...]   # 2^d specs: fine row <- coarse
     #                                   corner-view row (8*parent + octant)
     overflow: torch.Tensor            # (B,) int32, always 0
+    # the same maps as kernel A reads them, one launch a direction (None
+    # on an identity link, which moves nothing):
+    cidx: Optional[torch.Tensor] = None  # (B, 2^d, Tc) int32: children idx
+    cok: Optional[torch.Tensor] = None   # (B, 2^d, Tc) bool: children ok
+    idx2: Optional[torch.Tensor] = None  # (B, Tf) int32: the parents' idx
+    #                                      (2^d * parent + octant), shared
+    pok: Optional[torch.Tensor] = None   # (B, Tf) bool: the union of the
+    #                                      parents' (disjoint) oks
 
 
 class TileGraph(NamedTuple):
@@ -169,9 +177,10 @@ def _fold_occ_downsample(occ: torch.Tensor, t: int, dim: int) -> torch.Tensor:
 
 
 def _down_link(keys_f, occ_any, grid_f: int, dim: int, Tc: int):
-    """Coarse keys (occupied parents), child gather specs (coarse <- fine,
-    one per corner) and per-octant parent specs (fine <- coarse corner
-    view)."""
+    """Coarse keys (occupied parents), their count, the link (child gather
+    specs, coarse <- fine, one per corner; per-octant parent specs, fine <-
+    coarse corner view; both also stacked as kernel A reads them) and the
+    coarse tiles dropped by capacity."""
     fc = decode(keys_f, grid_f, dim)
     valid = keys_f != SENTINEL
     grid_c = grid_f // 2
@@ -198,7 +207,10 @@ def _down_link(keys_f, occ_any, grid_f: int, dim: int, Tc: int):
     idx2 = pidx * noct + corner
     parents = tuple(GatherSpec(idx2, pok & (corner == o))
                     for o in range(noct))
-    return keys_c, num_c, children, parents, n_spill
+    link = TileDownLink(children, parents, torch.zeros_like(num_c),
+                        cidx.contiguous(), cok.contiguous(),
+                        idx2.contiguous(), pok.contiguous())
+    return keys_c, num_c, link, n_spill
 
 
 def build_tile_graph(coords, values, n_voxels,
@@ -225,17 +237,16 @@ def build_tile_graph(coords, values, n_voxels,
         if l == nlev - 1:
             break
         t_c = tile_size_at(cfg, l + 1)
-        zero = torch.zeros_like(num)
         if t_c == t_l:
             Tc = min(tile_capacity_at(cfg, l + 1), keys.shape[1])
-            keys_c, num_c, children, parents, spill_c = _down_link(
+            keys_c, num_c, link, spill_c = _down_link(
                 keys, occ.any(-1), G_l, dim, Tc)
             tile_spill = tile_spill + spill_c
             # coarse occupancy: each corner pulls its child's folded
             # occupancy (0/1 is exact in bf16, as in the reference)
             occ_h = _fold_occ_downsample(occ, t_l, dim)
             occ_c = assemble_children(
-                occ_h[..., None].to(torch.bfloat16), children, t_c,
+                occ_h[..., None].to(torch.bfloat16), link, t_c,
                 dim)[..., 0] > 0
         else:
             # the tile edge halves with the grid: same tile rows, 8x fewer
@@ -245,9 +256,9 @@ def build_tile_graph(coords, values, n_voxels,
             ident = torch.arange(keys.shape[1], dtype=torch.int32,
                                  device=keys.device).expand_as(keys)
             spec = GatherSpec(ident, keys != SENTINEL)
-            children = parents = (spec,)
+            link = TileDownLink((spec,), (spec,), torch.zeros_like(num))
             occ_c = _fold_occ_downsample(occ, t_l, dim)
-        links.append(TileDownLink(children, parents, zero))
+        links.append(link)
         keys, num, occ = keys_c, num_c, occ_c
 
     return TileGraph(tuple(levels), tuple(links), feats0[..., None],
