@@ -87,6 +87,18 @@ PEAK_FLOPS = 989e12     # H100 SXM bf16 dense tensor-core peak, FLOP/s
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3, bytes/s
 
 
+# kernels D and E in phase 5: every extend shape of the unfused path at
+# config 3 (batch 8): the stem (C = 1), L0 blocks, the decoder's L0 concat
+# (C = 32, the largest extend: 1.6e9 values), t=2 blocks at L2 and L4, and
+# L0 in float32 (the auto path's dtype); (name, level, t, C, dtype)
+EXTEND_SHAPES = (("L0 t=4 C=16", 0, 4, 16, torch.bfloat16),
+                 ("stem L0 t=4 C=1", 0, 4, 1, torch.bfloat16),
+                 ("dec concat L0 t=4 C=32", 0, 4, 32, torch.bfloat16),
+                 ("L2 t=2 C=48", 2, 2, 48, torch.bfloat16),
+                 ("L4 t=2 C=80", 4, 2, 80, torch.bfloat16),
+                 ("L0 t=4 C=16 f32", 0, 4, 16, torch.float32))
+
+
 def require(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
@@ -490,34 +502,59 @@ def row_map(halo, t, device):
     return rows.flatten()
 
 
+def extend_bytes(kernel: str, a, halo, t: int, dim: int) -> int:
+    """The bytes kernel D ("d", on x) or E ("e", on g) must move: D reads
+    every row of x and writes every extended row; E reads the extended
+    cells that have a source (the body cells, and the slab cells of the
+    neighbors that exist) and writes every row of d_x; both read the
+    maps."""
+    from uresnet_pytorch_tpu_torch.ops.halo import halo_offsets
+    B, T, _, C = a.shape
+    cells, ecells = t ** dim, (t + 2) ** dim
+    if kernel == "d":
+        values = B * T * (cells + ecells) * C
+    else:
+        slab = torch.tensor([t ** sum(d == 0 for d in off)
+                             for off in halo_offsets(dim)],
+                            device=halo.ok.device)
+        has = B * T * cells + int((halo.ok.sum((0, 2)) * slab).sum())
+        values = (has + B * T * cells) * C
+    return values * a.element_size() + halo.idx.numel() * 4 \
+        + halo.ok.numel()
+
+
 def same_bits(a, b) -> bool:
     ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}
     return a.dtype == b.dtype and torch.equal(a.view(ints[a.dtype]),
                                               b.view(ints[b.dtype]))
 
 
-def check_extend(name, level, t, c, dtype, gen, device):
+def check_extend(name, halo, t, c, dtype, gen, device, dim: int = 3,
+                 timed: bool = True):
     """Kernels D and E against their plain versions on one level's real
     halo maps, bitwise, on random rows everywhere (dead rows included).
-    Returns {d|e: (max_abs_err, kernel ms, plain ms, bound ms, bound by,
-    library ms)}."""
+    Times each kernel on the device-only timer beside its bound; with
+    `timed`, also the plain version (CUDA events, one call) and the
+    one-call yardstick on the same timer (3D only). Returns {d|e:
+    (max_abs_err, kernel ms, plain ms, bound ms, bound by, library ms)},
+    None for what was not timed."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import (halo26_bwd,
                                                                 halo26_fwd)
     from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
                                                     halo26_transpose)
-    halo = level.halo
-    B, T = level.keys.shape
-    cells, ecells = t ** 3, (t + 2) ** 3
+    B, _, T = halo.idx.shape
+    cells, ecells = t ** dim, (t + 2) ** dim
     x = torch.randn(B, T, cells, c, generator=gen, device=device).to(dtype)
     g = torch.randn(B, T, ecells, c, generator=gen, device=device).to(dtype)
-    rows = row_map(halo, t, device)
-    xpad = torch.cat([x.reshape(-1, c), x.new_zeros(1, c)])
-    # the extended cells that have a source row: all that E must read
-    has = (rows != xpad.shape[0] - 1).nonzero().squeeze(1)
+    # zeros of both signs (a missing neighbor's +0.0 turns a -0.0 body
+    # +0.0) and subnormals (kernel E adds bf16 natively)
+    for a in (x, g):
+        a[a.abs() < 0.1] = -0.0
+        a[a.abs() > 2] *= 1e-39
     out = {}
     for key, kern, plain, a in (("d", halo26_fwd, halo26_extend, x),
                                 ("e", halo26_bwd, halo26_transpose, g)):
-        got, ref = kern(a, halo, t, 3), plain(a, halo, t, 3)
+        got, ref = kern(a, halo, t, dim), plain(a, halo, t, dim)
         torch.cuda.synchronize()
         same = same_bits(got, ref)
         err = float((got.float() - ref.float()).abs().max())
@@ -525,34 +562,120 @@ def check_extend(name, level, t, c, dtype, gen, device):
               f"{tuple(got.shape)} {str(dtype)[6:]}, bitwise equal to plain: "
               f"{same}")
         require(same, f"{kern.__name__} {name} is not bitwise equal to plain")
-        if key == "d":
-            lib = torch.index_select(xpad, 0, rows).view(got.shape)
-            require(torch.equal(lib, got),
-                    f"the index_select yardstick at {name} is not the extend")
-            lib_fn = lambda: torch.index_select(xpad, 0, rows)  # noqa: E731
-        else:
-            # over the cells that have a source: the others carry zeros
-            # into the appended row, and ~1e8 atomic adds to that one row
-            # would time contention, not the transpose
-            acc = torch.zeros_like(xpad)
-            rows_e, g_e = rows[has], g.reshape(-1, c)[has]
-            lib_fn = lambda: acc.index_add_(0, rows_e, g_e)     # noqa: E731
-        ms = time_ms(lambda: kern(a, halo, t, 3))
-        plain_ms = time_ms(lambda: plain(a, halo, t, 3), iters=2)
-        library_ms = time_ms(lib_fn)
-        # each needed input byte read once, each output written once: D
-        # reads every row of x (the body cells), E only the extended cells
-        # whose neighbor exists; both read the maps
-        read = a.numel() if key == "d" else has.numel() * c
-        nbytes = (read + got.numel()) * a.element_size() \
-            + halo.idx.numel() * 4 + halo.ok.numel()
-        bound_ms, by = bound(0, nbytes)
-        print(f"{kern.__name__} {name}: kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms, "
-              f"{'index_select' if key == 'd' else 'index_add_'} "
-              f"{library_ms:.3f} ms, bound {bound_ms:.4f} ms ({by})")
+        ms = device_ms(lambda: kern(a, halo, t, dim),
+                       launches=graph_launches(got))
+        bound_ms, by = bound(0, extend_bytes(key, a, halo, t, dim))
+        plain_ms = library_ms = None
+        if timed:
+            plain_ms = time_ms(lambda: plain(a, halo, t, dim), iters=1)
+            rows = row_map(halo, t, device)
+            xpad = torch.cat([x.reshape(-1, c), x.new_zeros(1, c)])
+            if key == "d":
+                lib = torch.index_select(xpad, 0, rows).view(got.shape)
+                require(torch.equal(lib, got), f"the index_select yardstick "
+                        f"at {name} is not the extend")
+                lib_fn = lambda: torch.index_select(xpad, 0, rows)  # noqa
+            else:
+                # over the cells that have a source: the others carry zeros
+                # into the appended row, and ~1e8 atomic adds to that one
+                # row would time contention, not the transpose
+                has = (rows != xpad.shape[0] - 1).nonzero().squeeze(1)
+                acc = torch.zeros_like(xpad)
+                rows_e, g_e = rows[has], g.reshape(-1, c)[has]
+                lib_fn = lambda: acc.index_add_(0, rows_e, g_e)  # noqa
+            library_ms = device_ms(lib_fn, launches=4, reps=3)
+            del rows, xpad
+        print(f"{kern.__name__} {name}: kernel {ms:.4f} ms (device-only), "
+              f"bound {bound_ms:.4f} ms ({by}), {bound_ms / ms:.0%} of it"
+              + (f"; plain {plain_ms:.3f} ms, "
+                 f"{'index_select' if key == 'd' else 'index_add_'} "
+                 f"{library_ms:.4f} ms" if timed else ""))
         out[key] = (err, ms, plain_ms, bound_ms, by, library_ms)
     return out
+
+
+def graph_launches(out) -> int:
+    """Launches in one `device_ms` graph of a kernel with this output: up
+    to 50, fewer where the graph's outputs would pass 4 GB."""
+    nbytes = out.numel() * out.element_size()
+    return int(min(50, max(4, 4e9 // max(nbytes, 1))))
+
+
+@contextlib.contextmanager
+def record_extend(shapes: dict, path: str):
+    """Counts kernel D's and E's launches in `shapes` by path, kernel and
+    input shape while the block runs, keeping the first launch's maps; the
+    wrappers (and their counters) still run."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
+    wrapped = {"D": he.halo26_fwd, "E": he.halo26_bwd}
+
+    def wrap(kernel):
+        def run(a, spec, t, dim):
+            B, T, _, C = a.shape
+            key = (f"{path} {kernel} B={B} T={T} t={t} C={C} "
+                   f"{str(a.dtype)[6:]}")
+            rec = shapes.setdefault(key, {
+                "path": path, "kernel": kernel, "shape": tuple(a.shape),
+                "dtype": a.dtype, "t": t, "dim": dim, "launches": 0,
+                "spec": (spec.idx, spec.ok)})
+            rec["launches"] += 1
+            return wrapped[kernel](a, spec, t, dim)
+        return run
+    with mock.patch.multiple(he, halo26_fwd=wrap("D"), halo26_bwd=wrap("E")):
+        yield
+
+
+def time_recorded(shapes: dict, device, seed: int = SEED) -> dict:
+    """Each recorded D or E shape timed on its own maps on the device-only
+    timer (random inputs from `seed`), beside its launches and bound."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
+    from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
+    gen = torch.Generator(device=device)
+    res = {}
+    for i, (key, rec) in enumerate(shapes.items()):
+        gen.manual_seed(seed + i)
+        a = torch.randn(rec["shape"], generator=gen, device=device).to(
+            rec["dtype"])
+        spec = Halo26Spec(*rec["spec"], None, None)
+        t, dim = rec["t"], rec["dim"]
+        fn = he.halo26_fwd if rec["kernel"] == "D" else he.halo26_bwd
+        launches = graph_launches(fn(a, spec, t, dim))
+        res[key] = {
+            "path": rec["path"], "kernel": rec["kernel"],
+            "launches": rec["launches"],
+            "ms": device_ms(lambda: fn(a, spec, t, dim), launches=launches),
+            "bound_ms": bound(0, extend_bytes(rec["kernel"].lower(), a, spec,
+                                              t, dim))[0]}
+        del a
+    return res
+
+
+def extend_per_run(shapes: dict, device, what: str, by_shape: dict) -> dict:
+    """Times kernels D and E at the shapes `record_extend` saw in one run,
+    checks their launches against the wrappers' launches_by_shape counts
+    of that run (`by_shape`: kernel -> Counter), and prints each kernel's
+    ms x launches in it. Returns {D|E: (ms x launches, bound ms x
+    launches)}."""
+    timed = time_recorded(shapes, device)
+    sums = {}
+    for kernel in ("D", "E"):
+        got = {}
+        for rec in shapes.values():
+            if rec["kernel"] == kernel:
+                k = (rec["t"], rec["dim"], rec["shape"][-1], rec["dtype"])
+                got[k] = got.get(k, 0) + rec["launches"]
+        require(got == dict(by_shape[kernel]), f"{what}: kernel {kernel}'s "
+                f"recorded launches {got} are not its launches_by_shape "
+                f"{dict(by_shape[kernel])}")
+        rows = [r for r in timed.values() if r["kernel"] == kernel]
+        sums[kernel] = (sum(r["ms"] * r["launches"] for r in rows),
+                        sum(r["bound_ms"] * r["launches"] for r in rows))
+    print(f"{what}: kernel D {sums['D'][0]:.3f} ms x launches (bound "
+          f"{sums['D'][1]:.3f}), kernel E {sums['E'][0]:.3f} (bound "
+          f"{sums['E'][1]:.3f}), device-only, by shape: " + "; ".join(
+              f"{k.split(' ', 1)[1]} {r['launches']} x {r['ms']:.4f}"
+              for k, r in timed.items()))
+    return sums
 
 
 def compare_logits(got, ref, valid, what: str) -> None:
@@ -778,6 +901,8 @@ def main() -> int:
         for m, attr in counters.values():
             setattr(m, attr, 0)
         dw_mod.launches_by_shape.clear()
+        he_mod.launches_by_shape_fwd.clear()
+        he_mod.launches_by_shape_bwd.clear()
         wg_mod.launches_by_op.update(dict.fromkeys(wg_mod.launches_by_op, 0))
 
     def require_a(n: int, got: dict, what: str) -> None:
@@ -789,6 +914,12 @@ def main() -> int:
 
     def counts():
         return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+
+    def extend_by_shape():
+        """Kernel D's and E's launches by (t, dim, C, dtype) since the
+        counts were last set to 0."""
+        return {"D": dict(he_mod.launches_by_shape_fwd),
+                "E": dict(he_mod.launches_by_shape_bwd)}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1060,21 +1191,40 @@ def main() -> int:
         graph = build_tile_graph(coords, values, nv, cfg)
     lv = graph.levels
     gen = torch.Generator(device=device).manual_seed(SEED)
-    # every extend shape of the unfused path: the stem (C = 1), L0 blocks,
-    # the decoder's L0 concat (C = 32, the largest extend: 1.6e9 values),
-    # t=2 blocks at L2 and L4, and L0 in float32 (the auto path's dtype)
     ext_res = {}
     with torch.no_grad():
-        for name, l, t, c, dt in (
-                ("L0 t=4 C=16", 0, 4, 16, torch.bfloat16),
-                ("stem L0 t=4 C=1", 0, 4, 1, torch.bfloat16),
-                ("dec concat L0 t=4 C=32", 0, 4, 32, torch.bfloat16),
-                ("L2 t=2 C=48", 2, 2, 48, torch.bfloat16),
-                ("L4 t=2 C=80", 4, 2, 80, torch.bfloat16),
-                ("L0 t=4 C=16 f32", 0, 4, 16, torch.float32)):
-            ext_res[name] = check_extend(name, lv[l], t, c, dt, gen, device)
+        for name, l, t, c, dt in EXTEND_SHAPES:
+            ext_res[name] = check_extend(name, lv[l].halo, t, c, dt, gen,
+                                         device)
             torch.cuda.empty_cache()
-    del graph, lv
+    # the kernels' other branches, bitwise: uresnet_filters=12's rows of 24
+    # and 120 bytes (8-byte units; D stores two to a 16-byte piece at
+    # C=12), C=1 in float32 (4-byte units, four to D's piece), t=8 on a
+    # tile_size=8 graph of config 4's events, and a 2D graph at t=2 (2-byte
+    # units at C=3; 16-byte ones at C=16)
+    with torch.no_grad():
+        lv8 = build_tile_graph(
+            *(torch.from_numpy(blob[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), cfg8).levels
+        cfg2 = dataclasses.replace(cfg, data_dim=2)
+        blob2 = event_blob(cfg2, 2, mean_voxels=30000)
+        lv2 = build_tile_graph(
+            *(torch.from_numpy(blob2[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), cfg2).levels
+        ext_branch = {name: check_extend(name, level.halo, t, c, dt, gen,
+                                         device, dim=dim, timed=False)
+                      for name, level, t, c, dt, dim in (
+                          ("L0 t=4 C=12", lv[0], 4, 12, torch.bfloat16, 3),
+                          ("L4 t=2 C=60", lv[4], 2, 60, torch.bfloat16, 3),
+                          ("stem L0 t=4 C=1 f32", lv[0], 4, 1, torch.float32,
+                           3),
+                          ("tile_size=8 L0 t=8 C=16", lv8[0], 8, 16,
+                           torch.bfloat16, 3),
+                          ("2D L1 t=2 C=3", lv2[1], 2, 3, torch.bfloat16, 2),
+                          ("2D L1 t=2 C=16", lv2[1], 2, 16, torch.bfloat16,
+                           2))}
+    del graph, lv, lv8, lv2
+    torch.cuda.empty_cache()
 
     # -- phase 6: config-3 inference on the unfused tile conv --------------
     print(f"phase 6 at {time.perf_counter() - t_start:.1f} s")
@@ -1085,8 +1235,15 @@ def main() -> int:
     with torch.no_grad():
         ref, _ = model(coords, values, nv)            # the fused kernel path
         with fused(False):
-            model(coords, values, nv)                 # warm-up
+            reset_counts()
+            shapes = {}
+            with record_extend(shapes, "forward"):
+                model(coords, values, nv)             # warm-up
             torch.cuda.synchronize()
+            ext_runs = {"unfused_forward": extend_per_run(
+                shapes, device, "unfused config-3 forward",
+                extend_by_shape())}
+            del shapes
             reset_counts()
             torch.cuda.reset_peak_memory_stats()
             times = []
@@ -1213,8 +1370,13 @@ def main() -> int:
         tv = fresh(cfg4)
         torch.cuda.synchronize()
         reset_counts()
-        losses, _, _ = timed_steps(tv, blob, 1, 0)
+        shapes = {}
+        with record_extend(shapes, "step"):
+            losses, _, _ = timed_steps(tv, blob, 1, 0)
         unfused_train = counts()
+        ext_runs["unfused_step"] = extend_per_run(
+            shapes, device, "unfused config-4 step", extend_by_shape())
+        del shapes
         print(f"launches in one unfused stage_dots step: {unfused_train}")
         require(unfused_train["halo26_fwd"] == 81,
                 f"expected 81 halo26_fwd launches per step (41 forward + 40 "
@@ -1265,15 +1427,21 @@ def main() -> int:
         cfg12, torch.Generator().manual_seed(SEED)))
     with torch.no_grad():
         reset_counts()
-        logits, diag = model(coords, values, nv)
+        shapes = {}
+        with record_extend(shapes, "forward"):
+            logits, diag = model(coords, values, nv)
         torch.cuda.synchronize()
-        f12_infer = counts()
+        f12_infer, f12_shapes = counts(), extend_by_shape()
         with plain_versions():
             ref, _ = model(coords, values, nv)
         torch.cuda.synchronize()
     print(f"launches in one uresnet_filters=12 forward (batch 2): "
           f"{f12_infer}")
     require(counts() == f12_infer, "the plain-path forward launched a kernel")
+    with torch.no_grad():
+        ext_runs["filters12_forward"] = extend_per_run(
+            shapes, device, "uresnet_filters=12 forward", f12_shapes)
+    del shapes
     require(f12_infer["halo_conv"] == 16 and f12_infer["halo26_fwd"] == 21,
             "expected 16 fused and 21 unfused convs in the filters=12 "
             "forward")
@@ -1286,10 +1454,15 @@ def main() -> int:
     del model, logits, ref, coords, values, nv, valid
     cfg12_4 = dataclasses.replace(cfg4, uresnet_filters=12, batch_size=1)
     reset_counts()
-    compare_step(cfg12_4, init_params(
-        cfg12_4, torch.Generator().manual_seed(cfg4.seed)),
-        event_blob(cfg12_4, 1), counts, "filters=12 kernel vs plain")
+    shapes = {}
+    with record_extend(shapes, "step"):   # the kernel step's launches only
+        compare_step(cfg12_4, init_params(
+            cfg12_4, torch.Generator().manual_seed(cfg4.seed)),
+            event_blob(cfg12_4, 1), counts, "filters=12 kernel vs plain")
     f12_train = counts()
+    ext_runs["filters12_step"] = extend_per_run(
+        shapes, device, "uresnet_filters=12 step", extend_by_shape())
+    del shapes
     print(f"launches in one uresnet_filters=12 stage_dots step (batch 1): "
           f"{f12_train}")
     require((f12_train["halo_conv"], f12_train["halo_conv_dw"],
@@ -1373,7 +1546,8 @@ def main() -> int:
                      for k, r in (*link_res.items(), *gather_res.items())}},
     ]
     # kernels D and E: launches on their main path (the unfused step),
-    # times at config 3's L0 t=4 C=16 bf16, the other shapes beside
+    # times at config 3's L0 t=4 C=16 bf16 (device-only), the other shapes
+    # and branches beside, and each run's ms x launches
     for name, key, line in (("halo26_fwd", "d", 455),
                             ("halo26_bwd", "e", 515)):
         r0 = ext_res["L0 t=4 C=16"][key]
@@ -1383,12 +1557,18 @@ def main() -> int:
             "replaces": f"uresnet_pytorch_tpu/ops/pallas/halo_fused.py:{line}",
             "launches": unfused_train[name],
             "launches_by_path": by_path(name),
-            "max_abs_err": max(r[key][0] for r in ext_res.values()),
+            "max_abs_err": max(r[key][0] for r in (*ext_res.values(),
+                                                   *ext_branch.values())),
             "ms": r0[1], "plain_ms": r0[2], "bound_ms": r0[3],
             "bound_by": r0[4], "library_ms": r0[5],
             "by_shape": {k: {"ms": r[key][1], "plain_ms": r[key][2],
                              "bound_ms": r[key][3], "library_ms": r[key][5]}
-                         for k, r in ext_res.items()}})
+                         for k, r in ext_res.items()},
+            "branch_checks": {k: {"max_abs_err": r[key][0], "ms": r[key][1],
+                                  "bound_ms": r[key][3]}
+                              for k, r in ext_branch.items()},
+            "ms_x_launches": {run: v[key.upper()][0]
+                              for run, v in ext_runs.items()}})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

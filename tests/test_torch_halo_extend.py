@@ -190,3 +190,155 @@ def test_wrappers_refuse_bad_inputs(wrapper):
         wrapper(card.half(), Halo26Spec(idx, ok, None, None), t, 3)
     with pytest.raises(ValueError, match="unsupported device meta"):
         wrapper(torch.zeros(B, T, cells, 8, device="meta"), spec, t, 3)
+
+
+# -- the kernels' work split (ops/cuda/halo_extend.py: extend_plan and
+# extend_table), rebuilt in torch as csrc/halo_extend.cu runs it --------
+
+def _nbr(spec, rows, k, T, dim):
+    """The kernel's shared neighbor table: the absolute source row of full
+    stencil offset k for each tile row (the row itself at the center), -1
+    where the neighbor is missing."""
+    center = 3 ** dim // 2
+    b, j = rows // T, rows % T
+    if k == center:
+        return rows
+    m = k if k < center else k - 1
+    cand = spec.idx[b, m, j].long()
+    live = spec.ok[b, m, j] & (cand >= 0) & (cand < T)
+    return torch.where(live, b * T + cand, -1)
+
+
+def _emulate(kernel, a, spec, t, dim, plan):
+    """(output, stores of each output unit) of kernel D ("d", a = x) or E
+    ("e", a = g) following `plan` step by step: blocks of plan.tiles tile
+    rows, THREADS threads each taking plan.pieces pieces THREADS apart per
+    step, a piece's per_piece units of vec bytes, each unit's value from
+    the table, the neighbor rows and the input (E: the body, then the
+    table's terms in order, added in a's dtype)."""
+    B, T, _, C = a.shape
+    item = a.element_size()
+    cells, ecells = t ** dim, (t + 2) ** dim
+    cells_out = ecells if kernel == "d" else cells
+    nvec = C * item // plan.vec
+    units = cells_out * nvec
+    assert units % plan.per_piece == 0
+    pieces = units // plan.per_piece
+    assert pieces * plan.store == cells_out * C * item
+    total = plan.tiles * pieces
+    # the block's loop: p0 = tid, tid + THREADS * P, ...; piece p0 + q *
+    # THREADS for q < P; p < total live
+    steps = -(-total // (he.THREADS * plan.pieces))
+    p = (torch.arange(he.THREADS)[:, None, None]
+         + torch.arange(steps)[None, :, None] * he.THREADS * plan.pieces
+         + torch.arange(plan.pieces)[None, None, :] * he.THREADS).flatten()
+    p = p[p < total]
+    blocks = -(-B * T // plan.tiles)
+    row = (torch.arange(blocks)[:, None] * plan.tiles
+           + p[None] // pieces).flatten()
+    pc = (p % pieces).repeat(blocks)
+    keep = row < B * T
+    row, pc = row[keep], pc[keep]
+    u = (pc[:, None] * plan.per_piece
+         + torch.arange(plan.per_piece)[None]).flatten()
+    row = row.repeat_interleave(plan.per_piece)
+    cell, v = u // nvec, u % nvec
+    per = plan.vec // item                     # values a unit
+    src = a.reshape(B * T, -1, nvec, per)
+    tab = torch.from_numpy(he.extend_table(kernel, t, dim).astype(np.int64))
+
+    def unit(rows, c):
+        got = src[rows.clamp(min=0), torch.where(rows >= 0, c, 0), v]
+        return torch.where((rows >= 0)[:, None], got, torch.zeros_like(got))
+
+    def nbr(k):
+        return torch.stack([_nbr(spec, row, kk, T, dim)
+                            for kk in range(3 ** dim)])[k, torch.arange(
+                                len(row))]
+
+    if kernel == "d":
+        code = tab[cell]
+        val = unit(nbr(code >> 10), code & 1023)
+    else:
+        w = tab[cell]                             # (units, 8)
+        val = unit(row, w[:, 0] & 1023)
+        for k in range(1, 8):
+            term = k <= w[:, 0] >> 10             # the unit's n slab terms
+            r = torch.where(term, nbr(torch.where(term, w[:, k] >> 10, 0)),
+                            -1)
+            val = torch.where(term[:, None], val + unit(r, w[:, k] & 1023),
+                              val)
+    out = torch.zeros(B * T, cells_out, nvec, per, dtype=a.dtype)
+    writes = torch.zeros(B * T, cells_out, nvec, dtype=torch.long)
+    out[row, cell, v] = val
+    writes.index_put_((row, cell, v), torch.ones_like(row), accumulate=True)
+    return out.reshape(B, T, cells_out, C), writes
+
+
+def _spec(dim, seed, live=40):
+    rng = np.random.default_rng(seed)
+    keys = np.stack([np.asarray(_random_level(rng, _GRID[dim], dim, T,
+                                              live)[0]) for _ in range(B)])
+    return rng, build_halo26(torch.from_numpy(keys), _GRID[dim], dim)
+
+
+SPLITS = ([(t, dim, C, torch.bfloat16, 16) for t in (2, 4, 8)
+           for dim in (2, 3) for C in (1, 2, 3, 12, 16, 48, 80)]
+          + [(t, dim, C, torch.float32, 16) for t in (2, 4, 8)
+             for dim in (2, 3) for C in (1, 3, 16)]
+          # an input whose address allows only narrower loads
+          + [(4, 3, 16, torch.bfloat16, 4), (2, 3, 80, torch.bfloat16, 2),
+             (2, 2, 12, torch.float32, 8)])
+
+
+@pytest.mark.parametrize("t,dim,C,dtype,align", SPLITS)
+def test_work_split_writes_once_and_matches_plain(t, dim, C, dtype, align):
+    """Kernels D and E as extend_plan splits them and extend_table maps
+    them write every output element exactly once, with the plain
+    versions' values bit for bit (dead rows included): E's terms come in
+    the plain version's order, a missing neighbor adding +0.0."""
+    rng, spec = _spec(dim, seed=t * 100 + dim * 10 + C)
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    for kernel, cells_in, plain in (("d", t ** dim, halo26_extend),
+                                    ("e", (t + 2) ** dim, halo26_transpose)):
+        a = torch.from_numpy(rng.normal(
+            size=(B, T, cells_in, C)).astype(np.float32)).to(dtype)
+        a[a.abs() < 0.3] = -0.0        # -0.0 + 0.0 must give +0.0
+        plan = he.extend_plan(kernel, t, dim, C * a.element_size(), align)
+        assert plan.store <= 16 and plan.store % plan.vec == 0
+        assert align % plan.vec == 0 and (C * a.element_size()) % plan.vec \
+            == 0
+        out, writes = _emulate(kernel, a, spec, t, dim, plan)
+        assert bool((writes == 1).all()), f"{kernel}: {plan}"
+        assert torch.equal(out.view(ints), plain(a, spec, t, dim).view(ints))
+
+
+def _dispatched(kernel):
+    """The (vec, per_piece) pairs csrc/halo_extend.cu instantiates for
+    kernel D ("d") or E ("e", one unit a piece)."""
+    import re
+    from pathlib import Path
+    src = (Path(he.__file__).parents[2] / "csrc" / "halo_extend.cu") \
+        .read_text()
+    body = src.split(f"#define {kernel.upper()}_PLANS(X)", 1)[1] \
+        .split("\n\n", 1)[0].split("\n//", 1)[0]
+    return {(int(m[0]), int(m[1] or 1)) for m in
+            re.findall(r"X\((\d+)(?:, (\d+))?\)", body)}
+
+
+@pytest.mark.parametrize("kernel", ["d", "e"])
+def test_every_plan_has_a_kernel(kernel):
+    """Each split extend_plan can return is one the kernel instantiates,
+    with the pieces a thread its dispatch expects."""
+    pairs = _dispatched(kernel)
+    assert len(pairs) == (10 if kernel == "d" else 4)
+    for t in he.TILE_SIZES:
+        for dim in (2, 3):
+            for row_bytes in range(2, 330, 2):
+                for align in (2, 4, 8, 16):
+                    plan = he.extend_plan(kernel, t, dim, row_bytes, align)
+                    assert (plan.vec, plan.per_piece) in pairs
+                    m = plan.per_piece
+                    want = max(1, 4 // m) if kernel == "d" else 1
+                    assert plan.pieces == want
+                    assert 1 <= plan.tiles <= he.MAX_TILES

@@ -1,10 +1,11 @@
-"""Times kernel B (the fused halo conv), kernel C (its weight gradient)
-or kernel A (the link gathers) of several source trees in turns on one
-card, at the shapes the config-3 forward and the config-4 step give it.
+"""Times kernel B (the fused halo conv), kernel C (its weight gradient),
+kernel A (the link gathers) or kernels D and E (the halo extend and its
+transpose) of several source trees in turns on one card, at the shapes
+the config-3 forward and the config-4 step give it.
 
     python -m uresnet_pytorch_tpu_torch.bench_kernel_b \
         [--tree NAME=DIR ...] [--rounds 2] [--check NAME ...] [--dw]
-        [--step] [--gather] [--out FILE]
+        [--step] [--gather] [--extend] [--out FILE]
 
 A tree is a directory holding a `uresnet_pytorch_tpu_torch` package (a
 checkout, or a copy of the package with an edited `csrc/`); `this` is the
@@ -28,8 +29,14 @@ profiles one config-3 forward and one config-4 step (the link movement:
 device time of the kernels inside the link ops). `--step` instead
 profiles one config-4 training step per process (after two warm-ups;
 `torch.profiler`, device time by kernel name) and lists the kernels whose
-time differs most between the trees. The table goes to stdout and every
-timing, as JSON, to `--out` (default `build/bench_kernel_b.json`).
+time differs most between the trees. `--extend` instead times kernels D
+and E on the device-only timer at every shape an unfused config-3
+forward (batch 8) and an unfused config-4 step (batch 2) launch them at,
+on those launches' maps, weights each shape by its launches, times
+`index_select` and `index_add_` of the same rows (in the first process
+only), and profiles one unfused forward and step per process. The table
+goes to stdout and every timing, as JSON, to `--out` (default
+`build/bench_kernel_b.json`).
 """
 
 from __future__ import annotations
@@ -283,6 +290,178 @@ def worker_gather() -> dict:
     return out
 
 
+def worker_extend(yardsticks: bool) -> dict:
+    """Kernels D and E of this process's package at every shape that one
+    unfused config-3 forward (batch 8) and one unfused config-4 step
+    (batch 2) launch them at, with those launches' own maps: device-only
+    ms (`device_ms`) on random inputs made from one seed, the launches,
+    the bound; with `yardsticks`, `index_select` (D) and `index_add_` over
+    the cells that have a source (E) of the same rows. Then one profiled
+    unfused forward and step (D's and E's device time, device work) and
+    the host-timed medians of 5 forwards and 3 steps."""
+    import torch
+
+    smoke = _smoke()
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
+    from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    device = torch.device("cuda", 0)
+    out = {"package": he.__file__}
+    shapes = {}
+    cfg = smoke.config3()
+    coords, values, nv = smoke.events(cfg, device)
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, init_params(cfg, torch.Generator().manual_seed(
+        smoke.SEED)))
+    with torch.no_grad():
+        # phase 5's shapes of chip_smoke.py, on config 3's maps
+        lv = build_tile_graph(coords, values, nv, cfg).levels
+        out["phase5"] = {}
+        gen = torch.Generator(device=device)
+        for i, (name, level, t, C, dtype) in enumerate(smoke.EXTEND_SHAPES):
+            halo = lv[level].halo
+            B, _, T = halo.idx.shape
+            res = {}
+            gen.manual_seed(i)
+            for kernel, fn, cells in (("D", he.halo26_fwd, t ** 3),
+                                      ("E", he.halo26_bwd, (t + 2) ** 3)):
+                a = torch.randn(B, T, cells, C, device=device,
+                                generator=gen).to(dtype)
+                res[kernel] = smoke.device_ms(
+                    lambda: fn(a, halo, t, 3),
+                    launches=smoke.graph_launches(fn(a, halo, t, 3)))
+                res[f"{kernel} bound"] = smoke.bound(0, smoke.extend_bytes(
+                    kernel.lower(), a, halo, t, 3))[0]
+                del a
+            out["phase5"][name] = res
+        del lv, halo
+        torch.cuda.empty_cache()
+    with torch.no_grad(), smoke.fused(False):
+        model(coords, values, nv)
+        with smoke.record_extend(shapes, "forward"):
+            model(coords, values, nv)
+        out["forward_profile"] = smoke.profile_run(
+            lambda: model(coords, values, nv), "unfused config-3 forward",
+            top=0)
+        out["forward_ms"] = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            model(coords, values, nv)
+            end.record()
+            torch.cuda.synchronize()
+            out["forward_ms"].append(start.elapsed_time(end))
+    del model, coords, values, nv
+    torch.cuda.empty_cache()
+    cfg4 = smoke.config4()
+    blob = smoke.event_blob(cfg4, smoke.BATCH4)
+    tv = TrainVal(cfg4)
+    tv.initialize(init_params(cfg4, torch.Generator().manual_seed(cfg4.seed)))
+    with smoke.fused(False):
+        smoke.timed_steps(tv, blob, 1, 0)
+        with smoke.record_extend(shapes, "step"):
+            tv.train_step(blob)
+        out["step_profile"] = smoke.profile_run(lambda: tv.train_step(blob),
+                                                "unfused config-4 step",
+                                                top=0)
+        _, out["step_ms"], _ = smoke.timed_steps(tv, blob, 0, 3)
+    del tv
+    torch.cuda.empty_cache()
+    out["shapes"] = smoke.time_recorded(shapes, device)
+    for key, rec in shapes.items() if yardsticks else ():
+        a = torch.randn(rec["shape"], device=device).to(rec["dtype"])
+        C = a.shape[-1]
+        rows = smoke.row_map(Halo26Spec(*rec["spec"], None, None), rec["t"],
+                             device)
+        if rec["kernel"] == "D":
+            pad = torch.cat([a.reshape(-1, C), a.new_zeros(1, C)])
+            lib = lambda: torch.index_select(pad, 0, rows)  # noqa: E731
+        else:
+            zero_row = a.shape[0] * a.shape[1] * rec["t"] ** 3  # no source
+            has = (rows != zero_row).nonzero().squeeze(1)
+            rows_e, g_e = rows[has], a.reshape(-1, C)[has]
+            acc = a.new_zeros(zero_row + 1, C)
+            lib = lambda: acc.index_add_(0, rows_e, g_e)  # noqa: E731
+        out["shapes"][key]["library_ms"] = smoke.device_ms(lib, launches=4,
+                                                           reps=3)
+        del a, rows, lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def _extend_table(order: list, runs: dict) -> dict:
+    """Prints, per shape, each tree's median device-only ms of D or E
+    (over its processes), the bound and share of it, the launches and
+    launches x (ms - bound); then each tree's summed ms x launches per
+    path and kernel, D's and E's profiled device time and device work,
+    and the host-timed medians; returns them."""
+    first = order[0]
+    shapes = runs[first][0]["shapes"]
+    table = {"shapes": {}, "sums": {}, "profiles": {}}
+    print(f"{'shape':44s} {'n':>3s} {'bound':>7s} " + " ".join(
+        f"{n[:12]:>20s}" for n in order) + "  library  (device-only ms, "
+        "share of bound, n x (ms - bound))")
+    for key, base in shapes.items():
+        meds = {n: statistics.median(r["shapes"][key]["ms"]
+                                     for r in runs[n]) for n in order}
+        lib = [r["shapes"][key]["library_ms"] for n in order
+               for r in runs[n] if "library_ms" in r["shapes"][key]]
+        b, k = base["bound_ms"], base["launches"]
+        table["shapes"][key] = {"launches": k, "bound_ms": b,
+                                "ms": meds, "library_ms":
+                                    statistics.median(lib) if lib else None}
+        print(f"{key:44s} {k:3d} {b:7.4f} " + " ".join(
+            f"{m:7.4f} {b / m:4.0%} {k * (m - b):6.3f}"
+            for m in meds.values())
+            + (f" {statistics.median(lib):8.4f}" if lib else ""))
+    print(f"{'phase-5 shape':30s} " + " ".join(
+        f"{n[:12]:>28s}" for n in order) + "  (D | E device-only ms, share "
+        "of bound)")
+    table["phase5"] = {}
+    for name, base in runs[first][0]["phase5"].items():
+        row = {n: {k: statistics.median(r["phase5"][name][k]
+                                        for r in runs[n])
+                   for k in ("D", "E")} for n in order}
+        table["phase5"][name] = {"ms": row, "bound_ms": {
+            k: base[f"{k} bound"] for k in ("D", "E")}}
+        print(f"{name:30s} " + " ".join(
+            f"{m['D']:7.4f} {base['D bound'] / m['D']:4.0%} "
+            f"{m['E']:7.4f} {base['E bound'] / m['E']:4.0%}"
+            for m in row.values()))
+    for n in order:
+        sums = {}
+        for key, v in table["shapes"].items():
+            base = shapes[key]
+            tag = f"{base['path']} {base['kernel']}"
+            sums[tag] = sums.get(tag, 0.0) + v["launches"] * v["ms"][n]
+        table["sums"][n] = sums
+        prof = {}
+        for key in ("forward", "step"):
+            ps = [r[f"{key}_profile"] for r in runs[n]]
+            ts = [v for r in runs[n] for v in r[f"{key}_ms"]]
+            prof[key] = {"D_ms": [p["kinds"]["kernel D"] for p in ps],
+                         "E_ms": [p["kinds"]["kernel E"] for p in ps],
+                         "busy_ms": [p["busy_ms"] for p in ps],
+                         "host_ms": ts}
+            print(f"{n}: unfused {key}: summed ms x launches "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sums.items()
+                              if k.startswith(key))
+                  + "; profiled D " + ", ".join(
+                      f"{v:.3f}" for v in prof[key]["D_ms"])
+                  + ", E " + ", ".join(f"{v:.3f}" for v in prof[key]["E_ms"])
+                  + ", device work " + ", ".join(
+                      f"{v:.1f}" for v in prof[key]["busy_ms"])
+                  + f" ms; host-timed median {statistics.median(ts):.1f} "
+                  f"ms [{min(ts):.1f}, {max(ts):.1f}]")
+        table["profiles"][n] = prof
+    return table
+
+
 def _gather_table(order: list, runs: dict) -> dict:
     """Prints, per tree, the medians and ranges of worker_gather's timings
     (each process's median of its five repeats for the single-spec
@@ -415,12 +594,13 @@ def _build(trees: dict) -> list:
 
 
 def _run(tree: Path, check: bool, gather: bool, dw: bool,
-         step: bool) -> dict:
+         step: bool, extend: bool) -> dict:
     """One worker process: this file run as a script, with `tree` first on
     sys.path so that the package under test is that tree's."""
     res = subprocess.run([sys.executable, __file__, "--worker", str(tree)]
                          + ["--check", "this"] * check + ["--gather"] * gather
-                         + ["--dw"] * dw + ["--step"] * step,
+                         + ["--dw"] * dw + ["--step"] * step
+                         + ["--extend"] * extend,
                          cwd=ROOT, capture_output=True, text=True)
     if res.returncode:
         raise RuntimeError(f"tree {tree}: worker failed\n{res.stdout}"
@@ -442,13 +622,17 @@ def main(argv=None) -> int:
                    help="time kernel C (d_W) instead of kernel B")
     p.add_argument("--step", action="store_true",
                    help="profile a config-4 step instead, by kernel name")
+    p.add_argument("--extend", action="store_true",
+                   help="time kernels D and E instead, at the shapes of an "
+                   "unfused config-3 forward and config-4 step")
     p.add_argument("--out", type=Path,
                    default=Path("build/bench_kernel_b.json"))
     p.add_argument("--worker", help=argparse.SUPPRESS)
     args = p.parse_args(argv)
     if args.worker:
         sys.path[:1] = [args.worker, str(ROOT)]
-        res = worker_step() if args.step else \
+        res = worker_extend(bool(args.check)) if args.extend else \
+            worker_step() if args.step else \
             worker_gather() if args.gather else \
             worker_dw(bool(args.check)) if args.dw else \
             worker(bool(args.check))
@@ -467,8 +651,11 @@ def main(argv=None) -> int:
     runs = {name: [] for name in order}
     for r in range(args.rounds):
         for name in order + order[::-1]:
-            res = _run(trees[name], name in args.check and r == 0,
-                       args.gather, args.dw, args.step)
+            # --extend: the yardsticks in the first process only
+            check = (name == order[0] and not runs[name]) if args.extend \
+                else name in args.check and r == 0
+            res = _run(trees[name], check, args.gather, args.dw, args.step,
+                       args.extend)
             runs[name].append(res)
             print(f"round {r} {name}: done", flush=True)
     if args.gather:
@@ -477,6 +664,13 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps(
             {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
              "gather": table, "runs": runs}, indent=1))
+        return 1 if broken else 0
+    if args.extend:
+        table = _extend_table(order, runs)
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(
+            {"device": smi, "trees": {n: str(d) for n, d in trees.items()},
+             "extend": table, "runs": runs}, indent=1))
         return 1 if broken else 0
     if args.step:
         table = _step_table(order, runs)

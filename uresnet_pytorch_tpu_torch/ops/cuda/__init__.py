@@ -45,8 +45,8 @@ _SIGNATURES = {
     "halo_conv_dw_plan": [_I, _I, _I, _I, _I],
     "link_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "link_parent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "halo_extend": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "halo_transpose": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "halo_extend": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
+    "halo_transpose": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
 }
 
 _lib = None

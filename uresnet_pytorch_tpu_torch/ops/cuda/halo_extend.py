@@ -24,17 +24,123 @@ the transpose: the port of the reference's custom VJP
 
 from __future__ import annotations
 
+import collections
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from uresnet_pytorch_tpu_torch.ops import cuda
-from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, halo26_extend,
-                                                halo26_transpose)
+from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, body_cells,
+                                                halo26_extend,
+                                                halo26_transpose,
+                                                halo_offsets, slab_cells)
 
 # kernel launches, for showing a run went through the kernels
 launches_fwd = 0   # kernel D
 launches_bwd = 0   # kernel E
+# the same launches by (t, dim, C, dtype), for each shape's share of a run
+launches_by_shape_fwd: collections.Counter = collections.Counter()
+launches_by_shape_bwd: collections.Counter = collections.Counter()
 
-TILE_SIZES = (2, 4, 8)   # the kernels' geometry tables
+TILE_SIZES = (2, 4, 8)   # the tile sizes the kernels take
+THREADS = 256            # a block's threads (kThreads in the kernel)
+BLOCK_UNITS = 2048       # about this many units a block
+MAX_TILES = 64           # tiles a block (kMaxTiles)
+NO_TERM = 0xFFFF         # an unused entry of E's table
+
+
+class ExtendPlan(NamedTuple):
+    """How kernel D or E splits its output (mirrored in
+    csrc/halo_extend.cu). A unit is `vec` bytes of one cell's row, loaded
+    as one vector; a piece is `per_piece` consecutive units of one tile,
+    `store` bytes stored as one vector; a thread takes `pieces` pieces
+    (`THREADS` apart) per step and issues all of their loads before any
+    store; a block takes `tiles` consecutive tile rows."""
+    vec: int
+    store: int
+    per_piece: int
+    pieces: int
+    tiles: int
+
+
+def _pow2_part(n: int, cap: int = 16) -> int:
+    """The largest power of two up to cap that divides n."""
+    v = cap
+    while n % v:
+        v //= 2
+    return v
+
+
+def extend_plan(kernel: str, t: int, dim: int, row_bytes: int,
+                in_align: int = 16, out_align: int = 16) -> ExtendPlan:
+    """The work split of kernel D ("d") or E ("e") for rows of `row_bytes`
+    (C x itemsize) on base addresses aligned to `in_align` and
+    `out_align` bytes. A unit is the widest vector dividing the row and
+    the input's address. D: a thread stores 16 bytes a piece where a
+    tile's output allows (one vector of one cell, or 16 / row_bytes cells
+    of narrow rows), else the widest power of two dividing a tile's
+    output, and takes four units a thread. E: one unit a piece and a
+    thread (its up to 2^dim loads; wider pieces or more units cost
+    registers and measured slower on the card, PERF.md). A block
+    takes about BLOCK_UNITS units."""
+    cells_out = (t + 2) ** dim if kernel == "d" else t ** dim
+    store = min(_pow2_part(cells_out * row_bytes), _pow2_part(out_align))
+    vec = min(_pow2_part(row_bytes), _pow2_part(in_align), store)
+    if kernel == "e":
+        store = vec
+    per_piece = store // vec
+    pieces = max(1, 4 // per_piece) if kernel == "d" else 1
+    units = cells_out * row_bytes // vec
+    tiles = max(1, min(MAX_TILES, BLOCK_UNITS // units))
+    return ExtendPlan(vec, store, per_piece, pieces, tiles)
+
+
+@functools.lru_cache(maxsize=None)
+def extend_table(kernel: str, t: int, dim: int) -> np.ndarray:
+    """The static cell geometry kernel D ("d") or E ("e") reads, from
+    ops/halo.py's `body_cells` / `slab_cells`. The neighbor index k is the
+    full 3^dim stencil's (`halo_offsets` with the center inserted, so the
+    center is 3^dim // 2 and -delta_k is 3^dim - 1 - k).
+
+    D: (ext cells,) uint16, ext cell e -> k << 10 | the source cell in
+    tile k (the center for the body).
+    E: (cells, 8) uint16, source cell s -> [n << 10 | its body ext cell,
+    then for each of the n offsets k whose slab holds s, in ascending k
+    (the plain version's order of adds): (the neighbor -delta_k) << 10 |
+    the ext cell there, then NO_TERM]."""
+    K = 3 ** dim
+    center = K // 2
+    cells, ecells = t ** dim, (t + 2) ** dim
+    if kernel == "d":
+        tab = np.full(ecells, NO_TERM, np.int64)
+        tab[body_cells(t, dim)] = center << 10 | np.arange(cells)
+        for k, off in enumerate(halo_offsets(dim)):
+            ec, sc = slab_cells(off, t)
+            tab[ec] = (k + (k >= center)) << 10 | sc
+        return tab.astype(np.uint16)
+    tab = np.full((cells, 8), NO_TERM, np.int64)
+    n = np.zeros(cells, np.int64)
+    for k, off in enumerate(halo_offsets(dim)):
+        ec, sc = slab_cells(off, t)
+        kf = k + (k >= center)
+        n[sc] += 1
+        tab[sc, n[sc]] = (K - 1 - kf) << 10 | ec
+    tab[:, 0] = n << 10 | body_cells(t, dim)
+    return tab.astype(np.uint16)
+
+
+_tables: dict = {}
+
+
+def _table(kernel: str, t: int, dim: int, device) -> torch.Tensor:
+    """extend_table on the device, copied there once."""
+    key = (kernel, t, dim, device)
+    if key not in _tables:
+        _tables[key] = torch.from_numpy(
+            extend_table(kernel, t, dim).view(np.int16)).to(device)
+    return _tables[key]
 
 
 def _check(name, a, spec, t, dim, cells_in, cells_out):
@@ -60,22 +166,17 @@ def _check(name, a, spec, t, dim, cells_in, cells_out):
     return torch.empty(B, T, cells_out, C, dtype=a.dtype, device=dev)
 
 
-def _vec_bytes(a: torch.Tensor, out: torch.Tensor) -> int:
-    """The widest vector that divides a row of C channels and both base
-    addresses."""
-    row_bytes = a.shape[-1] * a.element_size()
-    vec = 16
-    while row_bytes % vec or a.data_ptr() % vec or out.data_ptr() % vec:
-        vec //= 2
-    return vec
-
-
-def _launch(fn, a, spec, t, dim, out, *extra):
+def _launch(kernel, a, spec, t, dim, out, *extra):
     B, T, _, C = a.shape
+    row_bytes = C * a.element_size()
+    plan = extend_plan(kernel, t, dim, row_bytes, a.data_ptr() % 16 or 16,
+                       out.data_ptr() % 16 or 16)
+    fn = cuda.library().halo_extend if kernel == "d" else \
+        cuda.library().halo_transpose
     with torch.cuda.device(a.device):
         return fn(a.data_ptr(), spec.idx.data_ptr(), spec.ok.data_ptr(),
-                  out.data_ptr(), B, T, t, dim, C * a.element_size(),
-                  _vec_bytes(a, out), *extra,
+                  _table(kernel, t, dim, a.device).data_ptr(),
+                  out.data_ptr(), B, T, t, dim, row_bytes, *plan, *extra,
                   torch.cuda.current_stream().cuda_stream)
 
 
@@ -89,9 +190,9 @@ def halo26_fwd(x: torch.Tensor, spec: Halo26Spec, t: int,
     out = _check("halo26_fwd", x, spec, t, dim, t ** dim, (t + 2) ** dim)
     if out.numel() == 0:
         return out
-    cuda.check(_launch(cuda.library().halo_extend, x, spec, t, dim, out),
-               "halo26_fwd")
+    cuda.check(_launch("d", x, spec, t, dim, out), "halo26_fwd")
     launches_fwd += 1
+    launches_by_shape_fwd[(t, dim, x.shape[-1], x.dtype)] += 1
     return out
 
 
@@ -105,9 +206,10 @@ def halo26_bwd(g: torch.Tensor, spec: Halo26Spec, t: int,
     out = _check("halo26_bwd", g, spec, t, dim, (t + 2) ** dim, t ** dim)
     if out.numel() == 0:
         return out
-    cuda.check(_launch(cuda.library().halo_transpose, g, spec, t, dim, out,
+    cuda.check(_launch("e", g, spec, t, dim, out,
                        int(g.dtype == torch.float32)), "halo26_bwd")
     launches_bwd += 1
+    launches_by_shape_bwd[(t, dim, g.shape[-1], g.dtype)] += 1
     return out
 
 
