@@ -55,6 +55,17 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    those convs to the unfused path: one forward (batch 2) and one training
    step (batch 1), each held to the plain path at phase 2's and phase 4's
    bounds, with the exact launches of kernels B-E.
+9. drives the port's CLI (`flags.parse_args` on a user's argv, then
+   `main_funcs`) on synthetic events in a temporary directory: `train` at
+   config 4 for 3 iterations with a checkpoint each (3 checkpoints, a
+   3-row `train_log.csv` in the reference's columns, finite losses,
+   exactly 81 B, 41 C and 21 A launches a step), a fresh `TrainVal`
+   restored from the last checkpoint (logits `torch.equal` to the trained
+   model's), `inference` at config 3 over the checkpoint glob (3 rows of
+   `inference_log.csv`, exactly 37 B and 9 A launches a forward; with
+   h5py, the prediction file read back), and `iotest`; it prints the
+   CLI's events/s and step times beside phases 2 and 4, the checkpoint's
+   size and its save and restore times, and which host collate ran.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -66,10 +77,15 @@ generator.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
+import glob
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -874,6 +890,182 @@ def profile_run(fn, what: str, top: int = 12) -> dict:
             "links": links, "link_torch_ms": torch_ms, "link_ms": link_ms}
 
 
+TRAIN_LOG_COLUMNS = ["iter", "epoch", "loss", "accuracy", "titer", "tio",
+                     "tforward", "tbackward", "tsave", "lr", "overflow",
+                     "tile_spill"]
+
+
+def cli_argv(mode: str, workdir: str, batch: int, *extra: str) -> list:
+    """A user's argv for config 3's model (config 4 with the train flags):
+    `config3()` spelled as flags, on synthetic events."""
+    c3 = config3()
+    return [mode, "-io", "synthetic", "-ss", str(c3.spatial_size),
+            "-uf", str(c3.uresnet_filters),
+            "-uns", str(c3.uresnet_num_strides), "--reps", str(c3.reps),
+            "--max-voxels", str(c3.max_voxels),
+            "--capacity-factor", str(c3.capacity_factor),
+            "--tile-sizes", ",".join(map(str, c3.tile_sizes)),
+            "--compute-dtype", c3.compute_dtype, "-bs", str(batch),
+            "-wp", os.path.join(workdir, "snap"),
+            "-ld", os.path.join(workdir, "log"), *extra]
+
+
+def require_model_of(cfg, ref, what: str) -> None:
+    """The parsed configuration builds the same model and capacities as the
+    phase's own (the CLI has no flag for `min_level_capacity`, whose floor
+    binds at no level of config 3)."""
+    same = (cfg.n_planes == ref.n_planes and cfg.tile_sizes == ref.tile_sizes
+            and cfg.reps == ref.reps and cfg.compute_dtype == ref.compute_dtype
+            and all(cfg.level_capacity(l) == ref.level_capacity(l)
+                    and cfg.tile_occupancy_at(l) == ref.tile_occupancy_at(l)
+                    for l in range(ref.uresnet_num_strides)))
+    require(same, f"{what}: the CLI's flags do not give the phase's model")
+
+
+def read_csv(path: str) -> list:
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def cli_phase(device, counts, reset_counts, require_a, fwd_rate: float,
+              step_ms: float) -> dict:
+    """Phase 9: train, restore, inference and iotest through the port's
+    CLI. Returns each driven path's kernel launches."""
+    from uresnet_pytorch_tpu_torch import main_funcs
+    from uresnet_pytorch_tpu_torch.flags import parse_args
+    from uresnet_pytorch_tpu_torch.iotools import io_factory
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils import native
+    mean_voxels = int(N_VOXELS * 1.5)
+    collate = (f"native ({native.library_path()})" if native.available()
+               else "NumPy (the native library did not build)")
+    print(f"host collate: {collate}")
+    launches = {}
+    with tempfile.TemporaryDirectory() as d:
+        _, cfg_t = parse_args(cli_argv(
+            "train", d, BATCH4, "--remat-mode", "stage_dots", "-lr", "1e-3",
+            "-it", "3", "-chks", "1", "-rs", "1", "-nt", "2"))
+        require_model_of(cfg_t, config4(), "train")
+        require(cfg_t.remat_mode == "stage_dots"
+                and cfg_t.learning_rate == config4().learning_rate,
+                "train: the CLI's flags do not give config 4")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        tv = main_funcs.train(cfg_t, io=io_factory(
+            cfg_t, n_events=8, mean_voxels=mean_voxels))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches["cli_train_3_steps"] = got = counts()
+        print(f"launches in 3 CLI train steps: {got}")
+        require((got["halo_conv"], got["halo_conv_dw"], got["halo26_fwd"],
+                 got["halo26_bwd"]) == (3 * 81, 3 * 41, 0, 0),
+                "expected 81 B and 41 C launches (no D or E) a CLI train "
+                "step")
+        require_a(3 * 21, got, "3 CLI train steps")
+        ckpts = sorted(glob.glob(os.path.join(d, "snap-*.ckpt")))
+        require([os.path.basename(p) for p in ckpts]
+                == ["snap-1.ckpt", "snap-2.ckpt", "snap-3.ckpt"],
+                f"expected 3 checkpoints, found {ckpts}")
+        rows = read_csv(os.path.join(d, "log", "train_log.csv"))
+        require(len(rows) == 3 and list(rows[0]) == TRAIN_LOG_COLUMNS,
+                f"train_log.csv: {len(rows)} rows, columns {list(rows[0])}")
+        losses = [float(r["loss"]) for r in rows]
+        require(all(np.isfinite(losses)), f"non-finite CLI losses {losses}")
+        tfwd = [float(r["tforward"]) * 1e3 for r in rows]
+        tsave = [float(r["tsave"]) * 1e3 for r in rows]
+        titer = [float(r["titer"]) * 1e3 for r in rows]
+        print(f"CLI train: {train_s:.1f} s for 3 iterations; losses "
+              f"{', '.join(f'{l:.6f}' for l in losses)}; tforward "
+              f"{', '.join(f'{t:.1f}' for t in tfwd)} ms (phase 4's step: "
+              f"{step_ms:.1f} ms on CUDA events); titer "
+              f"{', '.join(f'{t:.1f}' for t in titer)} ms")
+
+        # restore: a fresh TrainVal from the last checkpoint
+        last = ckpts[-1]
+        size = os.path.getsize(last)
+        tv2 = TrainVal(cfg_t.replace(model_path=last))
+        tv2.initialize()
+        require(tv2.global_step == 3, f"restored step {tv2.global_step}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tv2.restore_state(last)
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        print(f"checkpoint {os.path.basename(last)}: {size} bytes; save "
+              f"(the CSV's tsave) {', '.join(f'{t:.1f}' for t in tsave)} ms; "
+              f"restore {restore_ms:.1f} ms")
+        blob = event_blob(config4(), BATCH4)
+        x = [torch.from_numpy(blob[k]).to(device)
+             for k in ("coords", "values", "n_voxels")]
+        with torch.no_grad():
+            trained, _ = tv.model(*x)
+            restored, _ = tv2.model(*x)
+        require(torch.equal(restored, trained),
+                "the restored model's logits differ from the trained model's")
+        print("restored logits torch.equal to the trained model's")
+        del tv, tv2, trained, restored
+        torch.cuda.empty_cache()
+
+        # inference at config 3 over the checkpoint glob
+        has_h5py = importlib.util.find_spec("h5py") is not None
+        pred = os.path.join(d, "pred.h5")
+        _, cfg_i = parse_args(cli_argv(
+            "inference", d, BATCH, "-mp", os.path.join(d, "snap-*.ckpt"),
+            "-nt", "4", *(["-of", pred] if has_h5py else [])))
+        require_model_of(cfg_i, config3(), "inference")
+        n_batches = 4
+        io = io_factory(cfg_i, n_events=n_batches * BATCH,
+                        mean_voxels=mean_voxels)
+        torch.cuda.synchronize()
+        reset_counts()
+        main_funcs.inference(cfg_i, io=io)
+        torch.cuda.synchronize()
+        launches["cli_inference_12_forwards"] = got = counts()
+        n_fwd = 3 * n_batches
+        print(f"launches in {n_fwd} CLI inference forwards: {got}")
+        require((got["halo_conv"], got["halo_conv_dw"], got["halo26_fwd"],
+                 got["halo26_bwd"]) == (37 * n_fwd, 0, 0, 0),
+                "expected 37 B launches (no C, D or E) a CLI forward")
+        require_a(9 * n_fwd, got, f"{n_fwd} CLI inference forwards")
+        rows = read_csv(os.path.join(d, "log", "inference_log.csv"))
+        require([r["ckpt"] for r in rows]
+                == ["snap-1.ckpt", "snap-2.ckpt", "snap-3.ckpt"],
+                f"inference_log.csv rows {[r['ckpt'] for r in rows]}")
+        require(all(np.isfinite(float(r["loss"])) for r in rows),
+                "non-finite CLI inference loss")
+        eps = [float(r["events_per_sec"]) for r in rows]
+        print(f"CLI inference events/s per checkpoint (4 threads of "
+              f"synthetic events, batch {BATCH}): "
+              f"{', '.join(f'{e:.2f}' for e in eps)}; phase 2's forward: "
+              f"{fwd_rate:.2f} events/s")
+        if has_h5py:
+            import h5py
+            with h5py.File(pred, "r") as f:
+                g = f["prediction"]
+                n_ev = 3 * n_batches * BATCH
+                rs = g["row_splits"][()]
+                require(len(g["entries"]) == n_ev and len(rs) == n_ev + 1
+                        and rs[-1] == len(g["coords"]) == len(g["values"])
+                        == len(g["softmax"]),
+                        "prediction file: row counts disagree")
+                require(bool((g["softmax"][()].argmax(-1)
+                              == g["values"][()]).all()),
+                        "prediction file: values are not the softmax argmax")
+                print(f"prediction file: {n_ev} events, {rs[-1]} voxels, "
+                      f"{os.path.getsize(pred)} bytes")
+        else:
+            print("h5py is not installed: the prediction writer (-of) was "
+                  "not run on the card")
+
+        _, cfg_io = parse_args(cli_argv("iotest", d, BATCH, "-it", "4",
+                                        "-nt", "4"))
+        io_eps = main_funcs.iotest(cfg_io, io=io_factory(
+            cfg_io, n_events=n_batches * BATCH, mean_voxels=mean_voxels))
+        require(io_eps > 0, "iotest gave no rate")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -1473,13 +1665,21 @@ def main() -> int:
     require_a(21, f12_train, "the filters=12 step")
     torch.cuda.empty_cache()
 
+    # -- phase 9: the CLI: train, restore, inference, iotest ---------------
+    print(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
+    t9 = time.perf_counter()
+    cli_launches = cli_phase(device, counts, reset_counts, require_a,
+                             BATCH / (ms / 1e3), step_ms)
+    print(f"phase 9: {time.perf_counter() - t9:.1f} s")
+
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
              "unfused_inference_3_forwards": unfused_launches,
              "f32_inference_forward": f32_launches,
              "unfused_training_step": unfused_train,
              "filters12_forward": f12_infer,
-             "filters12_training_step": f12_train}
+             "filters12_training_step": f12_train,
+             **cli_launches}
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}

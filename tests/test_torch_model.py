@@ -203,7 +203,8 @@ def test_port_imports_no_jax_and_builds_nothing():
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "uresnet_pytorch_tpu_torch"])
+@pytest.mark.parametrize("path", ["chip_smoke.py", "uresnet_pytorch_tpu_torch",
+                                  "bin/uresnet_torch.py"])
 def test_sources_import_nothing_of_jax_or_the_reference(path):
     """Every import statement, at any depth (chip_smoke imports inside
     main), names neither jax, flax nor the reference package."""

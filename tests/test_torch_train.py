@@ -329,20 +329,29 @@ def test_tile_padding_invariance():
         np.testing.assert_array_equal(res1[key].numpy(), res2[key].numpy())
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """Without device="cpu" the model and TrainVal ask for CUDA, and raise
-    where it is absent rather than dropping to the CPU."""
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """Without device="cpu" the model, TrainVal, the CLI's train and
+    inference and bin/uresnet_torch.py ask for CUDA, and raise where it is
+    absent rather than dropping to the CPU."""
+    import importlib.util
+    import pathlib
+    from uresnet_pytorch_tpu_torch import main_funcs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = _engine_cfg()
+    cfg = _engine_cfg(io_type="synthetic", log_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         construct("uresnet_sparse")(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrainVal(cfg)
+    for run in (main_funcs.train, main_funcs.inference):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run(cfg)
+    spec = importlib.util.spec_from_file_location(
+        "uresnet_torch", pathlib.Path(__file__).resolve().parents[1]
+        / "bin" / "uresnet_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        script.main(["train", "-io", "synthetic", "-ss", "16", "-uns", "3",
+                     "-ld", str(tmp_path)])
     model = construct("uresnet_sparse")(cfg, device="cpu")
     assert next(model.parameters()).device.type == "cpu"
-
-
-def test_checkpoints_are_not_ported_yet():
-    cfg = _engine_cfg(model_path="weights/snapshot-*.ckpt")
-    with pytest.raises(NotImplementedError, match="come with the port's CLI"):
-        TrainVal(cfg, device="cpu").initialize()

@@ -3,14 +3,18 @@ with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The JAX package `uresnet_pytorch_tpu` is the reference this port is held
 against. This package imports `torch` and never `jax`, and nothing of the
-reference package either: `config.py` and `iotools/synthetic.py` are its
-own ports of the reference's configuration and event generator.
+reference package either: its framework-free modules (`config.py`,
+`flags.py`, `iotools/`, `utils/csvdata.py`, `utils/timing.py`, the native
+host backend) are its own copies of the reference's.
 
 Layout mirrors the reference so each counterpart is easy to find:
-`config.py`, `iotools/`, `ops/` (keys, halo maps, tile graph, tiled convs),
+`config.py`, `flags.py`, `iotools/` (loaders, the h5 format, the
+prediction writer), `ops/` (keys, halo maps, tile graph, tiled convs),
 `ops/cuda/` (kernel wrappers beside their plain torch versions; the CUDA
 sources live in `csrc/` and are built on first use), `models/`,
-`trainval.py` and `utils/weights.py`.
+`trainval.py`, `main_funcs.py` (the CLI's loops; the script is
+`bin/uresnet_torch.py`) and `utils/` (weights, checkpoints, CSV and
+timers, the g++-built host collate).
 """
 
 __version__ = "0.1.0"

@@ -1,16 +1,18 @@
 """Typed configuration of the port's sparse U-ResNet.
 
-Port of `uresnet_pytorch_tpu/config.py`, cut to the fields the inference
-and training paths read. Every field keeps the reference's name, default
-and checks, and the derived sizes (`n_planes`, `level_capacity`,
-`tile_occupancy_at`) are computed the same way, so one set of keyword
-arguments builds the same model in both packages. The reference's
-model_name (the port builds by `models.construct(name)`), io, CLI and
-correction-budget fields have no use here yet and are left out.
+Port of `uresnet_pytorch_tpu/config.py`. Every field keeps the
+reference's name, default and checks, and the derived sizes (`n_planes`,
+`level_capacity`, `tile_occupancy_at`) are computed the same way, so one
+set of keyword arguments builds the same model in both packages, and the
+CLI (`flags.py`) fills the same fields from the same flags. As in the
+reference, `cfg.BATCH_SIZE` reads `batch_size`. The reference's
+correction-budget field (`corr_scale`) sizes TPU window lists the port's
+exact maps do not have, and is left out.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -23,6 +25,7 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class URESNetConfig:
     # ---- model ----
+    model_name: str = "uresnet_sparse"  # {uresnet_sparse, uresnet_dense}
     num_class: int = 5
     uresnet_filters: int = 16           # base filter count m
     uresnet_num_strides: int = 5        # resolution levels
@@ -52,21 +55,44 @@ class URESNetConfig:
     # does that except at level 0, "none" saves everything
     remat_mode: str = "stage"    # {stage, stage_dots, stage_dots_deep, none}
 
-    # ---- training ----
+    # ---- io ----
+    io_type: str = "h5"                 # {h5, larcv_sparse, larcv_dense, synthetic}
+    input_file: Tuple[str, ...] = ()
+    output_file: str = ""               # non-empty => inference writes predictions
+    data_keys: Tuple[str, ...] = ("data", "label")  # optional 3rd key = weight
     batch_size: int = 1
+    minibatch_size: int = -1            # per-device slice; -1 => batch_size
+    shuffle: bool = True
+    limit_num_files: int = 0
+    num_threads: int = 1                # prefetch threads
+    prefetch_depth: int = 2
+
+    # ---- training ----
+    train: bool = True
     learning_rate: float = 0.001        # Adam (b1 0.9, b2 0.999, eps 1e-8)
+    iteration: int = 10000
+    report_step: int = 1
+    checkpoint_step: int = 500
+    weight_prefix: str = "./weights/snapshot"
+    log_dir: str = "./log"
     seed: int = 0                       # parameter init
     weight_key: str = ""                # non-empty => per-voxel loss weights
-    model_path: str = ""                # checkpoints: not ported yet
-    resume: bool = False
 
-    # ---- precision ----
+    # ---- restore / inference ----
+    model_path: str = ""                # checkpoint path or glob
+    gpus: Tuple[int, ...] = ()          # one CUDA ordinal, or () for cuda:0
+    resume: bool = False                # restore the latest {weight_prefix}-*.ckpt
+
+    # ---- precision / profiling ----
     compute_dtype: str = "bfloat16"     # {bfloat16, float32}
     param_dtype: str = "float32"        # unused, as in the reference
+    profile_dir: str = ""               # non-empty => torch.profiler trace here
 
     def __post_init__(self):
         if self.data_dim not in (2, 3):
             raise ValueError(f"data_dim must be 2 or 3, got {self.data_dim}")
+        if self.model_name not in ("uresnet_sparse", "uresnet_dense"):
+            raise ValueError(f"unknown model_name {self.model_name!r}")
         if self.remat_mode not in ("stage", "stage_dots",
                                    "stage_dots_deep", "none"):
             raise ValueError(f"unknown remat_mode {self.remat_mode!r}")
@@ -122,6 +148,19 @@ class URESNetConfig:
                 self, "max_voxels",
                 max(self.min_level_capacity, _round_up(auto, 128)))
 
+    def __getattr__(self, name: str):
+        """UPPERCASE access as in the reference: cfg.BATCH_SIZE."""
+        if name.isupper():
+            try:
+                return object.__getattribute__(self, name.lower())
+            except AttributeError:
+                pass
+        raise AttributeError(name)
+
+    @property
+    def dim(self) -> int:
+        return self.data_dim
+
     @property
     def n_planes(self) -> Tuple[int, ...]:
         m, s = self.uresnet_filters, self.uresnet_num_strides
@@ -149,3 +188,6 @@ class URESNetConfig:
         cap = max(self.min_level_capacity, int(cap))
         cells = self.level_spatial_size(level) ** self.data_dim
         return _round_up(min(cap, cells), 8)
+
+    def replace(self, **kw) -> "URESNetConfig":
+        return dataclasses.replace(self, **kw)

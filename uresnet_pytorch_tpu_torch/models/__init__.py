@@ -20,6 +20,10 @@ def construct(name: str):
     ((B, V, num_class) per-voxel logits, diag counters)."""
     # import for registration side effects
     import uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled  # noqa: F401
+    if name == "uresnet_dense":
+        raise NotImplementedError(
+            "the dense U-ResNet is not ported yet (ROADMAP, queue 1: the "
+            "dense model)")
     if name not in _MODELS:
         raise ValueError(f"unknown model {name!r}; have {sorted(_MODELS)}")
     return _MODELS[name]
