@@ -65,7 +65,24 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    `inference_log.csv`, exactly 37 B and 9 A launches a forward; with
    h5py, the prediction file read back), and `iotest`; it prints the
    CLI's events/s and step times beside phases 2 and 4, the checkpoint's
-   size and its save and restore times, and which host collate ran.
+   size and its save and restore times, and which host collate ran;
+10. drives the dense U-ResNet (`construct("uresnet_dense")`, cuDNN
+   convolutions) at BASELINE config 1 (64^3, batch 1, bf16): its float32
+   forward on the card against the same weights on the CPU (max|delta|
+   <= 1e-4 max|ref|), the bf16 forward against the f32 one at phase 2's
+   bounds, ten timed forwards; at config 2 (128^3, batch 1, class weights
+   1.0 / 0.5, training through `TrainVal`): a bf16 step against an f32
+   step at phase 4's bounds, the running moments after one step against
+   one momentum update from that step's batch moments (each block is
+   recomputed in backward), five steps, step time and peak memory; and
+   `train -mn uresnet_dense` (2 iterations, a checkpoint each) and
+   `inference` over the checkpoints through the CLI;
+11. drives the row-gather engine (`sparse_engine="gather"`) at config 3:
+   the tile engine's logits (37 B, 9 A launches) held to the gather
+   engine's from the same variables at phase 2's bounds, three timed
+   forwards; and at config 4's shape (batch 2): a step against the tile
+   engine's step, five steps, step time and peak memory. Neither phase 10
+   nor 11 launches any of kernels A-E, which they check.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -1066,6 +1083,310 @@ def cli_phase(device, counts, reset_counts, require_a, fwd_rate: float,
     return launches
 
 
+def config1():
+    """benchmarks/run_all.py config 1: the dense U-ResNet forward, one 64^3
+    event (2000 voxels asked of the generator)."""
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig
+    return URESNetConfig(model_name="uresnet_dense", spatial_size=64,
+                         uresnet_filters=16, uresnet_num_strides=5,
+                         max_voxels=4096, batch_size=1,
+                         compute_dtype="bfloat16")
+
+
+def config2():
+    """benchmarks/run_all.py config 2: the dense U-ResNet training step,
+    one 128^3 event (8000 voxels asked), class weights 1.0 / 0.5."""
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig
+    return URESNetConfig(model_name="uresnet_dense", spatial_size=128,
+                         uresnet_filters=16, uresnet_num_strides=5,
+                         max_voxels=16384, batch_size=1, weight_key="weight",
+                         compute_dtype="bfloat16")
+
+
+def compare_steps(cfg, ref_cfg, variables, blob, what: str) -> None:
+    """Phase 4's bounds between one train step at `cfg` and one at
+    `ref_cfg` from the same variables (no optimizer step): loss within
+    1e-2, the whole gradient at cosine >= 0.99 and |delta|/|ref| <= 5e-2,
+    the running moments within 1e-2."""
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    res = []
+    for c in (cfg, ref_cfg):
+        tv = TrainVal(c)
+        tv.initialize(variables)
+        res.append(grads_and_stats(tv, blob))
+        del tv
+    (loss, grads, stats), (loss_r, grads_r, stats_r) = res
+    rel_loss = abs(loss - loss_r) / abs(loss_r)
+    names = sorted(grads_r)
+    g_cos, g_rel = cos_rel(torch.cat([grads[n].flatten() for n in names]),
+                           torch.cat([grads_r[n].flatten() for n in names]))
+    worst_stat = max(float(((stats[n] - sr).abs()
+                            / sr.abs().clamp(min=1.0)).max())
+                     for n, sr in stats_r.items())
+    print(f"{what} train step: loss {loss:.6f} vs {loss_r:.6f} (rel "
+          f"{rel_loss:.3e}); whole gradient ({len(names)} leaves): cosine "
+          f"{g_cos:.6f}, |delta|/|ref| {g_rel:.3e}; {len(stats_r)} running "
+          f"moments, worst rel {worst_stat:.3e}")
+    require(rel_loss <= 1e-2, f"{what}: losses disagree")
+    require(g_cos >= 0.99 and g_rel <= 5e-2, f"{what}: gradients disagree")
+    require(worst_stat <= 1e-2, f"{what}: running moments disagree")
+
+
+def dense_phase(device, counts, reset_counts) -> dict:
+    """Phase 10: the dense U-ResNet (configs 1 and 2) through the model
+    entry point, TrainVal and the CLI. Returns each path's kernel
+    launches (none: its convolutions are cuDNN's)."""
+    from uresnet_pytorch_tpu_torch import main_funcs
+    from uresnet_pytorch_tpu_torch.flags import parse_args
+    from uresnet_pytorch_tpu_torch.iotools import io_factory
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    none = dict.fromkeys(counts(), 0)
+    launches = {}
+    cfg1 = config1()
+    blob = event_blob(cfg1, 1, mean_voxels=2000)
+    x_cpu = [torch.from_numpy(blob[k]) for k in ("coords", "values",
+                                                 "n_voxels")]
+    x = [t.to(device) for t in x_cpu]
+    n = int(blob["n_voxels"][0])
+    print(f"config 1: dense, 64^3, batch 1, {n} voxels")
+    variables = init_params(cfg1, torch.Generator().manual_seed(SEED))
+    f32 = dataclasses.replace(cfg1, compute_dtype="float32")
+
+    def model(c, dev):
+        m = construct("uresnet_dense")(c, device=dev)
+        load_jax_variables(m, variables)
+        return m
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        ref, _ = model(f32, "cpu")(*x_cpu)
+        cpu_s = time.perf_counter() - t0
+        got32, _ = model(f32, device)(*x)
+        err = float((got32.cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        print(f"config-1 f32 forward, card vs CPU ({cpu_s:.1f} s there): "
+              f"max|delta| {err:.3e}, max|ref| {scale:.3e}")
+        require(err <= 1e-4 * scale, "config 1: f32 card vs CPU disagree")
+        m16 = model(cfg1, device)
+        m16(*x)
+        torch.cuda.synchronize()
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(10):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, diag = m16(*x)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        launches["dense_config1_10_forwards"] = got = counts()
+        profile_run(lambda: m16(*x), "dense config-1 forward", top=8)
+    require(got == none, f"the dense forward launched a kernel: {got}")
+    require(tuple(logits.shape) == (1, cfg1.max_voxels, cfg1.num_class)
+            and bool(torch.isfinite(logits).all()),
+            "config 1: logits of the wrong shape or not finite")
+    require({k: int(v) for k, v in diag.items()} == dict.fromkeys(
+        ("overflow", "tile_spill", "vox_spill"), 0), f"diag {diag}")
+    valid = torch.arange(cfg1.max_voxels, device=device)[None] < n
+    compare_logits(logits, got32, valid, "config-1 bf16 vs f32 logits")
+    ms = float(np.median(times))
+    print(f"config-1 bf16 forward, 10 runs: "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms; median {ms:.2f} ms = "
+          f"{1e3 / ms:.2f} events/s; peak memory {peak / 2**30:.3f} GiB")
+    del ref, got32, logits, m16
+
+    cfg2 = config2()
+    blob2 = event_blob(cfg2, 1, mean_voxels=8000)
+    blob2["weight"] = np.where(blob2["label"] > 0, 1.0, 0.5).astype(
+        np.float32)
+    print(f"config 2: dense, 128^3, batch 1, {int(blob2['n_voxels'][0])} "
+          f"voxels, class weights 1.0 / 0.5")
+    variables2 = init_params(cfg2, torch.Generator().manual_seed(SEED))
+    compare_steps(cfg2, dataclasses.replace(cfg2, compute_dtype="float32"),
+                  variables2, blob2, "config-2 bf16 vs f32")
+    # the running moments take one momentum update from the step's batch
+    # moments, though every block's forward runs twice (recompute); the
+    # batch moments come from a no-grad train forward of the same weights
+    tv = TrainVal(cfg2)
+    tv.initialize(variables2)
+    probe = TrainVal(cfg2)
+    probe.initialize(variables2)
+    with torch.no_grad():
+        probe._metrics(probe._batch(blob2), train=True)
+    bns = [(n, m) for n, m in tv.model.named_modules()
+           if isinstance(m, MaskedBatchNorm)]
+    moments = {n: m.batch_moments for n, m in probe.model.named_modules()
+               if isinstance(m, MaskedBatchNorm)}
+    before = {n: (m.mean.clone(), m.var.clone()) for n, m in bns}
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, _ = timed_steps(tv, blob2, 0, 1)
+    once = twice = 0.0
+    for n, m in bns:
+        for new, old, batch in zip((m.mean, m.var), before[n], moments[n]):
+            mom = m.momentum
+            want = mom * old + (1 - mom) * batch
+            scale = want.abs().clamp(min=1.0)
+            once = max(once, float(((new - want).abs() / scale).max()))
+            again = mom * want + (1 - mom) * batch
+            twice = max(twice, float(((new - again).abs() / scale).max()))
+    print(f"running moments after one step: worst rel {once:.3e} from one "
+          f"momentum update ({len(bns)} BNs), {twice:.3e} from two")
+    require(once <= 1e-3 < twice,
+            "the running moments are not one momentum update")
+    more, more_times, metrics = timed_steps(tv, blob2, 1, 3)
+    peak2 = torch.cuda.max_memory_allocated()
+    launches["dense_config2_5_steps"] = got = counts()
+    losses += more
+    times += more_times
+    print(f"config-2 losses of 5 steps on one batch: "
+          f"{', '.join(f'{l:.6f}' for l in losses)}")
+    require(got == none, f"the dense step launched a kernel: {got}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "config 2: the loss did not fall in 5 steps")
+    profile_run(lambda: tv.train_step(blob2), "dense config-2 step", top=8)
+    step_ms = float(np.median(times[1:]))
+    print(f"config-2 train step, 3 runs after 2: "
+          f"{', '.join(f'{t:.1f}' for t in times[1:])} ms; median "
+          f"{step_ms:.1f} ms = {1e3 / step_ms:.3f} events/s; peak memory "
+          f"{peak2 / 2**30:.3f} GiB")
+    del tv, probe
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as d:
+        base = ["-mn", "uresnet_dense", "-io", "synthetic", "-ss", "128",
+                "-uf", "16", "-uns", "5", "--max-voxels", "16384", "-bs",
+                "1", "-wk", "weight", "--compute-dtype", "bfloat16", "-nt",
+                "1", "-wp", os.path.join(d, "snap"),
+                "-ld", os.path.join(d, "log")]
+        _, ct = parse_args(["train", *base, "-it", "2", "-chks", "1",
+                            "-rs", "1"])
+        require(ct.model_name == "uresnet_dense"
+                and ct.n_planes == cfg2.n_planes
+                and ct.max_voxels == cfg2.max_voxels
+                and ct.weight_key == cfg2.weight_key,
+                "the CLI's flags do not give config 2")
+        reset_counts()
+        main_funcs.train(ct, io=io_factory(ct, n_events=4, mean_voxels=8000))
+        ckpts = sorted(os.path.basename(p)
+                       for p in glob.glob(os.path.join(d, "snap-*.ckpt")))
+        rows = read_csv(os.path.join(d, "log", "train_log.csv"))
+        require(ckpts == ["snap-1.ckpt", "snap-2.ckpt"] and len(rows) == 2
+                and all(np.isfinite(float(r["loss"])) for r in rows),
+                f"dense CLI train: checkpoints {ckpts}, {len(rows)} rows")
+        _, ci = parse_args(["inference", *base,
+                            "-mp", os.path.join(d, "snap-*.ckpt")])
+        main_funcs.inference(ci, io=io_factory(ci, n_events=2,
+                                               mean_voxels=8000))
+        irows = read_csv(os.path.join(d, "log", "inference_log.csv"))
+        require([r["ckpt"] for r in irows] == ckpts
+                and all(np.isfinite(float(r["loss"])) for r in irows),
+                f"dense CLI inference rows {irows}")
+        launches["dense_cli"] = got = counts()
+        require(got == none, f"the dense CLI launched a kernel: {got}")
+        print(f"dense CLI: train losses "
+              f"{', '.join(r['loss'] for r in rows)}, tforward "
+              f"{', '.join(r['tforward'] for r in rows)} s; inference over "
+              f"{ckpts}: loss {', '.join(r['loss'] for r in irows)}")
+    return launches
+
+
+def gather_phase(device, counts, reset_counts, require_a) -> dict:
+    """Phase 11: the row-gather engine at config 3 (forward, held against
+    the tile engine, kernels A and B) and config 4's shape (a step against
+    the tile engine's, five steps). Returns each path's kernel launches."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    none = dict.fromkeys(counts(), 0)
+    launches = {}
+    cfg = config3()
+    coords, values, nv = events(cfg, device)
+    variables = init_params(cfg, torch.Generator().manual_seed(SEED))
+    models = {}
+    for engine in ("tile", "gather"):
+        models[engine] = construct("uresnet_sparse")(
+            dataclasses.replace(cfg, sparse_engine=engine))
+        load_jax_variables(models[engine], variables)
+    with torch.no_grad():
+        for m in models.values():
+            m(coords, values, nv)                      # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        tile, _ = models["tile"](coords, values, nv)
+        torch.cuda.synchronize()
+        launches["tile_forward_phase11"] = got = counts()
+        require(got["halo_conv"] == 37, f"tile forward: {got}")
+        require_a(9, got, "the tile forward")
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, diag = models["gather"](coords, values, nv)
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        peak = torch.cuda.max_memory_allocated()
+        launches["gather_3_forwards"] = got = counts()
+        profile_run(lambda: models["gather"](coords, values, nv),
+                    "gather-engine config-3 forward", top=10)
+    require(got == none, f"the gather engine launched a kernel: {got}")
+    pad = torch.arange(cfg.max_voxels, device=device)[None] >= nv[:, None]
+    require(bool(torch.isfinite(logits).all())
+            and bool((logits[pad] == 0).all()),
+            "gather engine: non-finite logits or nonzero padding rows")
+    compare_logits(tile, logits, ~pad,
+                   "tile engine (kernels A, B) vs gather engine logits")
+    ms = sorted(times)[1]
+    print(f"gather-engine config-3 forward, 3 runs: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms:.1f} ms = "
+          f"{BATCH / (ms / 1e3):.2f} events/s; peak memory "
+          f"{peak / 2**30:.2f} GiB")
+    del models, tile, logits, coords, values, nv, pad
+    torch.cuda.empty_cache()
+
+    cfg4 = config4()
+    cfg4g = dataclasses.replace(cfg4, sparse_engine="gather")
+    blob = event_blob(cfg4, BATCH4)
+    variables4 = init_params(cfg4, torch.Generator().manual_seed(cfg4.seed))
+    compare_steps(cfg4, cfg4g, variables4, blob,
+                  "tile engine vs gather engine, config 4's shape,")
+    tv = TrainVal(cfg4g)
+    tv.initialize(variables4)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, _ = timed_steps(tv, blob, 2, 3)
+    peak = torch.cuda.max_memory_allocated()
+    launches["gather_5_steps"] = got = counts()
+    print(f"gather-engine losses of 5 steps on one batch: "
+          f"{', '.join(f'{l:.6f}' for l in losses)}")
+    require(got == none, f"the gather step launched a kernel: {got}")
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            "gather engine: the loss did not fall in 5 steps")
+    profile_run(lambda: tv.train_step(blob), "gather-engine step", top=8)
+    step_ms = sorted(times)[1]
+    print(f"gather-engine train step (batch {BATCH4}), 3 runs after 2: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms; median "
+          f"{step_ms:.1f} ms = {BATCH4 / (step_ms / 1e3):.3f} events/s; "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    del tv
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -1672,6 +1993,18 @@ def main() -> int:
                              BATCH / (ms / 1e3), step_ms)
     print(f"phase 9: {time.perf_counter() - t9:.1f} s")
 
+    # -- phase 10: the dense U-ResNet (configs 1 and 2) --------------------
+    t10 = time.perf_counter()
+    print(f"phase 10 at {t10 - t_start:.1f} s")
+    dense_launches = dense_phase(device, counts, reset_counts)
+    print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+
+    # -- phase 11: the row-gather engine against the tile engine -----------
+    t11 = time.perf_counter()
+    print(f"phase 11 at {t11 - t_start:.1f} s")
+    gather_launches = gather_phase(device, counts, reset_counts, require_a)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
              "unfused_inference_3_forwards": unfused_launches,
@@ -1679,7 +2012,7 @@ def main() -> int:
              "unfused_training_step": unfused_train,
              "filters12_forward": f12_infer,
              "filters12_training_step": f12_train,
-             **cli_launches}
+             **cli_launches, **dense_launches, **gather_launches}
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}

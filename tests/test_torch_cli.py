@@ -55,15 +55,10 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def _reference_then_both(tmp, base):
     """The reference trains 2 iterations (a checkpoint each), then both
-    packages run inference over the checkpoint glob with -of."""
-    tmp = tmp_path_factory.mktemp("cli")
-    h5 = generate_h5_file(str(tmp / "events.h5"), n_events=8,
-                          spatial_size=16, data_dim=3, seed=7,
-                          mean_voxels=120)
-    base = _base(h5)
+    packages run inference over the checkpoint glob with -of: {"ref" /
+    "ours": (summary, inference_log.csv rows, prediction file)}."""
     _, cfg = j_parse_args(["train", *base, "-it", "2", "-chks", "1", "-rs",
                            "1", "-wp", str(tmp / "w" / "snap"),
                            "-ld", str(tmp / "train_log")])
@@ -79,11 +74,39 @@ def runs(tmp_path_factory):
         summary = run(cfg, **kw)
         out[name] = (summary, _rows(tmp / f"{name}_log" / "inference_log.csv"),
                      str(tmp / f"{name}_pred.h5"))
-    return tmp, out
+    return out
+
+
+def _events_h5(tmp):
+    return generate_h5_file(str(tmp / "events.h5"), n_events=8,
+                            spatial_size=16, data_dim=3, seed=7,
+                            mean_voxels=120)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The sparse model (tile engine) through _reference_then_both."""
+    tmp = tmp_path_factory.mktemp("cli")
+    return tmp, _reference_then_both(tmp, _base(_events_h5(tmp)))
+
+
+def _dense_base(h5):
+    return [*_base(h5), "-mn", "uresnet_dense"]
+
+
+@pytest.fixture(scope="module")
+def dense_runs(tmp_path_factory):
+    """The dense model through _reference_then_both."""
+    tmp = tmp_path_factory.mktemp("dense_cli")
+    return tmp, _reference_then_both(tmp, _dense_base(_events_h5(tmp)))
 
 
 def test_inference_csv_matches_reference(runs):
     _, out = runs
+    _check_csv_rows(out)
+
+
+def _check_csv_rows(out):
     ours, ref = out["ours"][1], out["ref"][1]
     assert [r["ckpt"] for r in ours] == [r["ckpt"] for r in ref] == [
         "snap-1.ckpt", "snap-2.ckpt"]
@@ -100,6 +123,10 @@ def test_inference_csv_matches_reference(runs):
 
 def test_prediction_file_matches_reference(runs):
     _, out = runs
+    _check_prediction_files(out)
+
+
+def _check_prediction_files(out):
     with h5py.File(out["ours"][2]) as a, h5py.File(out["ref"][2]) as b:
         pa, pb = a["prediction"], b["prediction"]
         for key in ("coords", "row_splits", "entries"):
@@ -187,11 +214,48 @@ def test_iotest_reports_a_positive_rate(runs):
     assert main_funcs.iotest(cfg) > 0
 
 
-def test_dense_model_is_not_ported_yet():
-    cfg = TConfig(model_name="uresnet_dense", spatial_size=32)
-    from uresnet_pytorch_tpu_torch.trainval import TrainVal
-    with pytest.raises(NotImplementedError, match="dense model"):
-        TrainVal(cfg, device="cpu").initialize()
+def test_dense_inference_matches_reference(dense_runs):
+    """`-mn uresnet_dense` over the reference's dense checkpoints: the
+    reference's CSV rows and prediction file."""
+    _, out = dense_runs
+    _check_csv_rows(out)
+    _check_prediction_files(out)
+
+
+def test_dense_train_then_inference(tmp_path, dense_runs):
+    """The port trains the dense model through the CLI (3 iterations, a
+    checkpoint at 3, a CSV row each), then infers over its checkpoint
+    with -of (tests/test_dense.py's end-to-end run)."""
+    h5 = str(dense_runs[0] / "events.h5")
+    _, cfg = parse_args(["train", *_dense_base(h5), "-it", "3", "-chks",
+                         "3", "-rs", "1", "-wp", str(tmp_path / "w" / "snap"),
+                         "-ld", str(tmp_path / "log")])
+    tv = main_funcs.train(cfg, device="cpu")
+    assert tv.global_step == 3
+    assert sorted(os.listdir(tmp_path / "w")) == ["snap-3.ckpt"]
+    rows = _rows(tmp_path / "log" / "train_log.csv")
+    assert [r["iter"] for r in rows] == ["1", "2", "3"]
+    assert all(np.isfinite(float(r["loss"])) for r in rows)
+    assert {r["overflow"] for r in rows} == {r["tile_spill"] for r in rows} \
+        == {"0"}
+    _, icfg = parse_args(["inference", *_dense_base(h5),
+                          "-mp", str(tmp_path / "w" / "snap-*.ckpt"),
+                          "-of", str(tmp_path / "pred.h5"), "-it", "2",
+                          "-ld", str(tmp_path / "log")])
+    summary = main_funcs.inference(icfg, device="cpu")
+    assert summary["ckpt"] == "snap-3.ckpt" and "accuracy" in summary
+    with h5py.File(tmp_path / "pred.h5") as f:
+        g = f["prediction"]
+        assert g["softmax"].shape[1] == 5
+        assert g["coords"].shape[0] == g["softmax"].shape[0] > 0
+        assert g["row_splits"][-1] == g["coords"].shape[0]
+
+
+def test_dense_iotest(dense_runs):
+    _, cfg = parse_args(["iotest", *_dense_base(
+        str(dense_runs[0] / "events.h5")), "-it", "3"])
+    assert cfg.model_name == "uresnet_dense"
+    assert main_funcs.iotest(cfg) > 0
 
 
 def test_several_gpus_are_not_ported_yet():

@@ -186,6 +186,15 @@ with torch.no_grad():
     logits, _ = model(coords, torch.ones(1, 64),
                       torch.tensor([64], dtype=torch.int32))
 assert logits.shape == (1, 64, 5) and torch.isfinite(logits).all()
+import uresnet_pytorch_tpu_torch.utils.scn_import
+import uresnet_pytorch_tpu_torch.utils.torch_import
+for other in (cfg.replace(sparse_engine="gather"),
+              cfg.replace(model_name="uresnet_dense")):
+    model = construct(other.model_name)(other, device="cpu")
+    with torch.no_grad():
+        logits, _ = model(coords, torch.ones(1, 64),
+                          torch.tensor([64], dtype=torch.int32))
+    assert logits.shape == (1, 64, 5) and torch.isfinite(logits).all()
 assert cuda._lib is None, "a CUDA kernel library was built or loaded"
 assert len(generate_event(0, 0, 16, 3, 64)[0]) > 0
 print(sorted(m for m in sys.modules if m.split(".")[0] in

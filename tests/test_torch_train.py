@@ -338,8 +338,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     from uresnet_pytorch_tpu_torch import main_funcs
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = _engine_cfg(io_type="synthetic", log_dir=str(tmp_path))
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        construct("uresnet_sparse")(cfg)
+    for other in (cfg, cfg.replace(sparse_engine="gather"),
+                  cfg.replace(model_name="uresnet_dense")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            construct(other.model_name)(other)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TrainVal(cfg)
     for run in (main_funcs.train, main_funcs.inference):

@@ -44,7 +44,7 @@ class URESNetConfig:
     min_level_capacity: int = 256
 
     # ---- tile engine ----
-    sparse_engine: str = "tile"         # only the tile engine is ported
+    sparse_engine: str = "tile"         # {tile, gather}: tiled-dense or row-gather engine
     tile_size: int = 4                  # tile edge t (power of two)
     tile_occupancy: float = 4.5         # voxels per occupied tile (capacity divisor)
     tile_sizes: Optional[Tuple[int, ...]] = None   # per-level t; stays or halves

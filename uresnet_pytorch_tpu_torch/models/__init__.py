@@ -19,11 +19,8 @@ def construct(name: str):
     nn.Module whose forward(coords, values, n_voxels) gives
     ((B, V, num_class) per-voxel logits, diag counters)."""
     # import for registration side effects
-    import uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled  # noqa: F401
-    if name == "uresnet_dense":
-        raise NotImplementedError(
-            "the dense U-ResNet is not ported yet (ROADMAP, queue 1: the "
-            "dense model)")
+    import uresnet_pytorch_tpu_torch.models.uresnet_dense  # noqa: F401
+    import uresnet_pytorch_tpu_torch.models.uresnet_sparse  # noqa: F401
     if name not in _MODELS:
         raise ValueError(f"unknown model {name!r}; have {sorted(_MODELS)}")
     return _MODELS[name]

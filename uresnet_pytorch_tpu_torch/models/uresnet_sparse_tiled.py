@@ -30,6 +30,7 @@ Both modes take the conv path `ops.tile_conv.USE_FUSED` selects: kernel B
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
@@ -38,7 +39,6 @@ from torch.utils.checkpoint import (checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from uresnet_pytorch_tpu_torch.config import URESNetConfig
-from uresnet_pytorch_tpu_torch.models import register_model
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
 from uresnet_pytorch_tpu_torch.ops.tile_conv import (
     downsample_conv_tiled, submanifold_conv_bn_act_tiled,
@@ -56,8 +56,9 @@ def _conv_init(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
 
 
 def _lecun_normal(shape, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """flax's lecun_normal: truncated normal on [-2, 2], variance 1/fan_in."""
-    std = (1.0 / shape[-2]) ** 0.5 / 0.87962566103423978
+    """flax's lecun_normal: truncated normal on [-2, 2], variance 1/fan_in,
+    fan_in = prod(shape[:-1]) (a (*k, I, O) kernel or an (I, O) matrix)."""
+    std = (1.0 / math.prod(shape[:-1])) ** 0.5 / 0.87962566103423978
     w = torch.empty(shape)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w * std
@@ -183,11 +184,13 @@ _SAVE_CONV_OUTPUTS = functools.partial(
      torch.ops.aten.convolution.default])
 
 
-class UResNetSparseTiled(nn.Module):
-    """forward(coords (B,V,dim) int32, values (B,V) f32, n_voxels (B,)
-    int32, train=False) -> (logits (B, V, num_class) f32 in blob row order,
-    diag), where diag holds the graph's `overflow`, `tile_spill` and
-    `vox_spill` counts."""
+class SparseUResNetBase(nn.Module):
+    """The parameter tree both sparse engines share, so that one variables
+    tree loads into either: a subclass names its submanifold conv
+    (`Conv(cfg, cin, features)`, a parameter `w`) and residual block
+    (`Block(cfg, cin, features)`) and gives the forward."""
+    Conv = SMConvTile
+    Block = SparseResBlockTile
 
     def __init__(self, cfg: URESNetConfig,
                  generator: Optional[torch.Generator] = None):
@@ -195,10 +198,10 @@ class UResNetSparseTiled(nn.Module):
         self.cfg = cfg
         dim, planes = cfg.data_dim, cfg.n_planes
         nlev = cfg.uresnet_num_strides
-        self.stem = SMConvTile(cfg, 1, planes[0])
+        self.stem = self.Conv(cfg, 1, planes[0])
         for l in range(nlev):
             for r in range(cfg.reps):
-                self.add_module(f"enc{l}_block{r}", SparseResBlockTile(
+                self.add_module(f"enc{l}_block{r}", self.Block(
                     cfg, planes[l], planes[l]))
             if l < nlev - 1:
                 self.add_module(f"down{l}_bnact", BNAct(cfg, planes[l]))
@@ -210,7 +213,7 @@ class UResNetSparseTiled(nn.Module):
                 torch.empty(2 ** dim, planes[l + 1], planes[l])))
             for r in range(cfg.reps):
                 cin = 2 * planes[l] if r == 0 else planes[l]
-                self.add_module(f"dec{l}_block{r}", SparseResBlockTile(
+                self.add_module(f"dec{l}_block{r}", self.Block(
                     cfg, cin, planes[l]))
         self.head_bnact = BNAct(cfg, planes[0])
         self.head_w = nn.Parameter(torch.empty(planes[0], cfg.num_class))
@@ -231,6 +234,13 @@ class UResNetSparseTiled(nn.Module):
                 p.copy_(_lecun_normal(tuple(p.shape), generator))
             else:
                 p.copy_(_conv_init(tuple(p.shape), generator))
+
+
+class UResNetSparseTiled(SparseUResNetBase):
+    """forward(coords (B,V,dim) int32, values (B,V) f32, n_voxels (B,)
+    int32, train=False) -> (logits (B, V, num_class) f32 in blob row order,
+    diag), where diag holds the graph's `overflow`, `tile_spill` and
+    `vox_spill` counts."""
 
     def _enc_stage(self, x, l, level, mask, nxt_occ, link, t, t_next,
                    train):
@@ -337,18 +347,3 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: pass device='cpu' to run the plain "
             "torch versions of the kernels on the CPU")
     return device
-
-
-@register_model("uresnet_sparse")
-def build_sparse(cfg: URESNetConfig,
-                 generator: Optional[torch.Generator] = None,
-                 device="cuda"):
-    """The tile engine on `device` (initialized on the CPU from
-    `generator`, then moved). The reference's row-gather engine is not
-    ported."""
-    if cfg.sparse_engine != "tile":
-        raise NotImplementedError(
-            f"sparse_engine={cfg.sparse_engine!r}: only the tile engine is "
-            "ported")
-    device = resolve_device(device)
-    return UResNetSparseTiled(cfg, generator=generator).to(device)

@@ -83,9 +83,12 @@ def export_variables(module: nn.Module) -> dict:
 
 def init_params(cfg: URESNetConfig, generator: torch.Generator) -> dict:
     """A fresh `{"params": ..., "batch_stats": ...}` tree of numpy arrays
-    for the sparse U-ResNet at `cfg`, drawn from `generator` with the
-    reference's initializers (He normal for conv stacks, lecun_normal for
-    the head, BN scale 1 / bias 0 / mean 0 / var 1)."""
-    from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
-        UResNetSparseTiled)
-    return export_variables(UResNetSparseTiled(cfg, generator=generator))
+    for `cfg.model_name` (and, for the sparse model, `cfg.sparse_engine`:
+    both engines draw the same tree), drawn from `generator` with the
+    reference's initializers: for the sparse model He normal for conv
+    stacks and lecun_normal for the head, for the dense model flax's
+    lecun_normal kernels and zero biases; BN scale 1 / bias 0 / mean 0 /
+    var 1."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    return export_variables(construct(cfg.model_name)(
+        cfg, generator=generator, device="cpu"))
