@@ -83,6 +83,30 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    forwards; and at config 4's shape (batch 2): a step against the tile
    engine's step, five steps, step time and peak memory. Neither phase 10
    nor 11 launches any of kernels A-E, which they check.
+12. drives data parallel at config 5 (`benchmarks/run_all.py:159-173`:
+   config 4's model at batch max(2, ranks)) through `parallel.launch` and
+   `TrainVal`: (a) one NCCL rank, four steps from phase 4's variables and
+   blob, step 1 held to phase 4's step without a process group at phase
+   4's bounds; (b) two ranks on the one card over gloo (NCCL refuses two
+   ranks on one device), one event each, two steps, step 1 held to the
+   one-process step at DP_BOUNDS, and the same step in f32 (the unfused
+   path) at DP_F32_BOUNDS; planted faults (per-rank BN, DDP's; per-rank
+   loss normalization with averaged gradients) must break those bounds.
+   Every step of every rank launches exactly 81 B, 41 C and 21 A, (b)'s
+   parameters are `torch.equal` across the ranks after each step; step
+   times beside phase 4's ((b) labelled: not a multi-card rate) and peak
+   memory.
+13. drives the SCN layer API (`uresnet_pytorch_tpu_torch.scn`): a U-Net
+   of its layers (submanifold convs with BN-LeakyReLU, a stride-2
+   Convolution, MaxPooling and AveragePooling down, UnPooling and
+   Deconvolution up with channel joins) on one config-3 event, in f32 on
+   the card and on the CPU and in f64 on the CPU (the witness): the
+   train-mode forward, the running moments it commits, and an eval-mode
+   forward and backward held card vs CPU at max|delta| <= 1e-4 max|ref|,
+   the train-mode backward held to the witness at SCN_TRAIN_GRAD_BOUND
+   (the CPU's f32 gap to it printed beside); max and average pooling on a
+   fully active 32^3 grid held to F.max_pool3d / F.avg_pool3d; no launch
+   of kernels A-E.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -1387,6 +1411,438 @@ def gather_phase(device, counts, reset_counts, require_a) -> dict:
     return launches
 
 
+def counter_modules() -> dict:
+    """Each kernel's launch counter: {name: (module, attribute)}."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg_mod
+    return {"halo_conv": (hc_mod, "launches"),
+            "halo_conv_dw": (dw_mod, "launches"),
+            "windowed_gather": (wg_mod, "launches"),
+            "halo26_fwd": (he_mod, "launches_fwd"),
+            "halo26_bwd": (he_mod, "launches_bwd")}
+
+
+def kernel_counts() -> dict:
+    return {k: getattr(m, attr) for k, (m, attr) in counter_modules().items()}
+
+
+# a config-4 (and config-5) stage_dots step's launches, per rank
+STEP_LAUNCHES = {"halo_conv": 81, "halo_conv_dw": 41, "windowed_gather": 21,
+                 "halo26_fwd": 0, "halo26_bwd": 0}
+
+
+# phase 12 (b)'s bounds on step 1 of two gloo ranks against one process on
+# the batch, each relative: the loss's, the whole gradient's |d|/|ref| and
+# the running moments' largest |d| over max(|ref|, 1). Each lies between
+# the sound run's reading and those of the faults `dp_rank` plants (PERF.md,
+# section 6): in bf16 per-rank BN moves the gradient 4.5e-2 against the
+# sound 2.2e-3, and per-rank loss normalization, 3.0e-3, hides in that
+# bf16 noise; in f32 the sound run reads 5.9e-5, that fault 2.4e-3.
+DP_BOUNDS = {"loss": 1e-5, "grad": 1e-2, "stat": 1e-5}
+DP_F32_BOUNDS = {"loss": 1e-5, "grad": 5e-4, "stat": 1e-5}
+DP_FAULTS = ("rank_bn", "rank_loss")
+
+
+def rank_mean_loss(segmentation_loss):
+    """The loss normalized per rank and the ranks' gradients averaged,
+    as DistributedDataParallel would have it: each rank's gradient is that
+    of its own mean loss over the rank count. The value stays the global
+    loss, so the fault shows in the gradient alone."""
+    def loss(*args, mesh=None, **kw):
+        out = segmentation_loss(*args, mesh=mesh, **kw)
+        own = segmentation_loss(*args, mesh=None, **kw)["loss"] / mesh.size
+        out["loss"] = out["loss"].detach() + own - own.detach()
+        return out
+    return loss
+
+
+def dp_rank(cfg, variables, blob, steps: int, out: str,
+            faults: bool = False) -> None:
+    """One rank of phase 12, in a process that `parallel.launch` started:
+    `steps` train steps of `cfg` from `variables` on this rank's shard of
+    `blob`, under the process group. Writes to out.format(rank): step 1's
+    loss, summed gradients and new moments, each step's loss, kernel
+    launches and ms (CUDA events), the parameters after each step (on the
+    host) and the peak device memory. With `faults`, step 1 again from
+    `variables` with each of DP_FAULTS planted ("rank_bn": BN moments per
+    rank; "rank_loss": rank_mean_loss), and in f32 (the unfused path)
+    sound and with each fault planted: under {"bfloat16", "float32"} x
+    {"sound", *DP_FAULTS}, the sound bf16 run left out."""
+    import torch.distributed as dist
+    from uresnet_pytorch_tpu_torch import trainval
+    from uresnet_pytorch_tpu_torch.models.norm import use_mesh
+    from uresnet_pytorch_tpu_torch.parallel.dryrun import step_result
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tv = trainval.TrainVal(cfg)
+    tv.initialize(variables)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res = {"losses": [], "ms": [], "launches": [], "params": [],
+           "backend": dist.get_backend(), "world": tv.mesh.size,
+           "device": str(tv.device)}
+    for i in range(steps):
+        before = kernel_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        if i == 0:
+            res["first"] = step_result(tv, blob)
+            loss = res["first"]["loss"]
+        else:
+            loss = float(tv.train_step(blob)["loss"])
+        end.record()
+        torch.cuda.synchronize()
+        res["ms"].append(start.elapsed_time(end))
+        res["losses"].append(loss)
+        res["launches"].append({k: v - before[k]
+                                for k, v in kernel_counts().items()})
+        res["params"].append({k: p.detach().cpu().clone()
+                              for k, p in tv.model.named_parameters()})
+    res["peak"] = torch.cuda.max_memory_allocated()
+    del tv
+    if faults:
+        res["faults"] = {}
+        sound_loss = trainval.segmentation_loss
+        for dtype in ("bfloat16", "float32"):
+            for fault in ("sound",) * (dtype == "float32") + DP_FAULTS:
+                tv = trainval.TrainVal(dataclasses.replace(
+                    cfg, compute_dtype=dtype))
+                tv.initialize(variables)
+                if fault == "rank_bn":
+                    use_mesh(tv.model, None)
+                if fault == "rank_loss":
+                    trainval.segmentation_loss = rank_mean_loss(sound_loss)
+                try:
+                    res["faults"][dtype, fault] = step_result(tv, blob)
+                finally:
+                    trainval.segmentation_loss = sound_loss
+                del tv
+                torch.cuda.empty_cache()
+    torch.save(res, out.format(dist.get_rank()))
+
+
+def dp_gap(ref: dict, got: dict) -> dict:
+    """Step 1 of a data-parallel run against the one-process step: the
+    loss's relative difference, the whole gradient's cosine and |d|/|ref|,
+    the running moments' largest |d| / max(|ref|, 1), and the three leaves
+    of largest max|d|."""
+    names = sorted(ref["grads"])
+    d_grad = {n: float(np.abs(got["grads"][n] - ref["grads"][n]).max())
+              for n in names}
+    flat = [torch.from_numpy(np.concatenate([g["grads"][n].ravel()
+                                             for n in names]))
+            for g in (got, ref)]
+    g_cos, g_rel = cos_rel(*flat)
+    return {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]),
+            "cos": g_cos, "grad": g_rel,
+            "stat": max(float((np.abs(got["stats"][n] - r)
+                               / np.maximum(np.abs(r), 1.0)).max())
+                        for n, r in ref["stats"].items()),
+            "zero": sum(v == 0 for v in d_grad.values()), "leaves": len(names),
+            "worst": sorted(d_grad.items(), key=lambda kv: -kv[1])[:3]}
+
+
+def show_gap(what: str, gap: dict) -> None:
+    print(f"{what}: loss rel {gap['loss']:.3e}; {gap['leaves']} gradients "
+          f"({gap['zero']} exactly equal; largest max|d| "
+          f"{', '.join(f'{n} {v:.3e}' for n, v in gap['worst'])}), "
+          f"whole-gradient cosine {gap['cos']:.6f}, |d|/|ref| "
+          f"{gap['grad']:.3e}; running moments rel {gap['stat']:.3e}")
+
+
+def broken(gap: dict, bounds: dict) -> list:
+    """The bounds of `bounds` that `gap` exceeds."""
+    return [k for k, b in bounds.items() if not gap[k] <= b]
+
+
+def dp_phase(cfg4, variables, blob, step_ms: float) -> dict:
+    """Phase 12: data parallel at config 5 (`benchmarks/run_all.py:159-173`:
+    config 4's model at batch max(2, ranks)): (a) one NCCL rank, four
+    steps, held to phase 4's step without a process group at phase 4's
+    bounds; (b) two ranks on the one card over gloo (NCCL refuses two
+    ranks on one device), one event each, two steps, step 1 held to the
+    one-process step at DP_BOUNDS and its f32 step at DP_F32_BOUNDS; the
+    faults `dp_rank` plants must break them: per-rank BN in bf16 and in
+    f32, per-rank loss normalization in f32 (its bf16 reading is printed).
+    Returns each run's launches."""
+    from uresnet_pytorch_tpu_torch.parallel import launch
+    from uresnet_pytorch_tpu_torch.parallel.dryrun import step_result
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    refs = {}
+    for dtype in ("bfloat16", "float32"):
+        tv = TrainVal(dataclasses.replace(cfg4, compute_dtype=dtype))
+        tv.initialize(variables)
+        refs[dtype] = step_result(tv, blob)
+        del tv
+        torch.cuda.empty_cache()
+    ref = refs["bfloat16"]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank{}.pt")
+        t0 = time.perf_counter()
+        launch(dp_rank, 1, device_ids=(0,), args=(cfg4, variables, blob, 4,
+                                                  out))
+        print(f"(a) one NCCL rank: {time.perf_counter() - t0:.1f} s with "
+              "its start")
+        a = torch.load(out.format(0), weights_only=False)
+        t0 = time.perf_counter()
+        launch(dp_rank, 2, device_ids=(0, 0),
+               args=(cfg4, variables, blob, 2, out, True))
+        print(f"(b) two gloo ranks on one card: "
+              f"{time.perf_counter() - t0:.1f} s with their start")
+        b = [torch.load(out.format(r), weights_only=False) for r in range(2)]
+    require((a["backend"], a["world"]) == ("nccl", 1), f"(a) ran "
+            f"{a['backend']} over {a['world']}")
+    require(all((r["backend"], r["world"]) == ("gloo", 2) for r in b),
+            "(b) did not run gloo over two ranks")
+    for what, runs in (("(a)", [a]), ("(b)", b)):
+        for r, run in enumerate(runs):
+            for i, got in enumerate(run["launches"]):
+                require(got == STEP_LAUNCHES, f"{what} rank {r} step {i + 1} "
+                        f"launched {got}, expected {STEP_LAUNCHES}")
+            require(all(np.isfinite(run["losses"])), f"{what}: a non-finite "
+                    "loss")
+    print(f"launches per rank per step: {STEP_LAUNCHES} in every step of "
+          "(a) and of both ranks of (b)")
+    # (a): phase 4's bounds of a bf16 step (a sum over one rank is the
+    # identity, so 0 is expected up to kernel C's atomic order)
+    gap = dp_gap(ref, a["first"])
+    show_gap("(a) one NCCL rank vs no process group, config 4", gap)
+    require(gap["loss"] <= 1e-2 and gap["cos"] >= 0.99 and gap["grad"] <= 5e-2
+            and gap["stat"] <= 1e-2, "(a) disagrees at phase 4's bounds")
+    gaps = {}
+    for r, run in enumerate(b):
+        gaps[r] = dp_gap(ref, run["first"])
+        show_gap(f"(b) gloo rank {r} of 2 (one event each) vs one process "
+                 "on both events", gaps[r])
+        for (dtype, fault), res in run["faults"].items():
+            gaps[r, dtype, fault] = dp_gap(refs[dtype], res)
+            show_gap(f"(b) rank {r}, {dtype}, {fault}"
+                     + " planted" * (fault != "sound"), gaps[r, dtype, fault])
+    print(f"(b) bounds in bf16 {DP_BOUNDS}, in f32 {DP_F32_BOUNDS}")
+    for r in range(2):
+        for dtype, bounds, faults in (("bfloat16", DP_BOUNDS, ("rank_bn",)),
+                                      ("float32", DP_F32_BOUNDS, DP_FAULTS)):
+            sound = gaps[r] if dtype == "bfloat16" else gaps[r, dtype, "sound"]
+            require(not broken(sound, bounds), f"(b) rank {r} in {dtype} "
+                    f"breaks {broken(sound, bounds)}")
+            for fault in faults:
+                caught = broken(gaps[r, dtype, fault], bounds)
+                require(bool(caught), f"(b) rank {r}: the planted {fault} "
+                        f"passes the {dtype} bounds")
+                print(f"(b) rank {r}: planted {fault} in {dtype} breaks "
+                      f"{caught}")
+    for i in range(2):
+        p0, p1 = (run["params"][i] for run in b)
+        require(all(torch.equal(p0[k], p1[k]) for k in p0),
+                f"(b) the ranks' parameters differ after step {i + 1}")
+    print("(b) parameters torch.equal across the ranks after steps 1 and 2")
+    ms_a = float(np.median(a["ms"][1:]))
+    print(f"(a) one NCCL rank, config 5 at batch {BATCH4}: steps "
+          f"{', '.join(f'{t:.1f}' for t in a['ms'])} ms; median of steps 2-4 "
+          f"{ms_a:.1f} ms = {BATCH4 / (ms_a / 1e3):.3f} events/s (phase 4: "
+          f"{step_ms:.1f} ms = {BATCH4 / (step_ms / 1e3):.3f}); losses "
+          f"{', '.join(f'{l:.6f}' for l in a['losses'])}; peak memory "
+          f"{a['peak'] / 2**30:.2f} GiB")
+    for r, run in enumerate(b):
+        print(f"(b) gloo, 2 ranks on 1 card (not a multi-card rate), rank "
+              f"{r}: steps {', '.join(f'{t:.1f}' for t in run['ms'])} ms, "
+              f"losses {', '.join(f'{l:.6f}' for l in run['losses'])}, peak "
+              f"memory {run['peak'] / 2**30:.2f} GiB")
+    return {"dp_nccl_1_rank_step": a["launches"][0],
+            "dp_gloo_2_ranks_step_per_rank": b[0]["launches"][0]}
+
+
+class ScnUNet(torch.nn.Module):
+    """Phase 13's U-Net of the SCN layer API (`uresnet_pytorch_tpu_torch
+    .scn`): input, submanifold convs with BN-LeakyReLU, down by a stride-2
+    Convolution, MaxPooling and AveragePooling, up by UnPooling and
+    Deconvolution with channel joins, a per-site linear head, output."""
+
+    def __init__(self, dim: int, size: int, m: int, classes: int):
+        super().__init__()
+        from uresnet_pytorch_tpu_torch import scn
+        self.join = scn.join_table
+
+        def block(cin, cout):
+            return torch.nn.ModuleList([
+                scn.SubmanifoldConvolution(dim, cin, cout),
+                scn.BatchNormLeakyReLU(cout, leakiness=0.1)])
+        self.inp = scn.InputLayer(dim, size)
+        self.enc0 = block(1, m)
+        self.down = scn.Convolution(dim, m, 2 * m)
+        self.enc1 = block(2 * m, 2 * m)
+        self.maxpool = scn.MaxPooling(dim)
+        self.enc2 = block(2 * m, 2 * m)
+        self.avgpool = scn.AveragePooling(dim)
+        self.enc3 = block(2 * m, 2 * m)
+        self.unpool = scn.UnPooling(dim)
+        self.dec2 = block(4 * m, 2 * m)
+        self.dec1 = block(4 * m, 2 * m)
+        self.up = scn.Deconvolution(dim, 2 * m, m)
+        self.dec0 = block(2 * m, m)
+        self.head = scn.NetworkInNetwork(m, classes, bias=True)
+        self.out = scn.OutputLayer(dim)
+
+    def forward(self, coords, values, n_voxels, train: bool = False):
+        def run(blk, st):
+            return blk[1](blk[0](st), train)
+        j = self.join
+        st, roi = self.inp(coords, values, n_voxels)
+        l0 = run(self.enc0, st)
+        l1, link0 = self.down(l0)
+        l1 = run(self.enc1, l1)
+        l2, link1 = self.maxpool(l1)
+        l2 = run(self.enc2, l2)
+        l3, link2 = self.avgpool(l2)
+        l3 = run(self.enc3, l3)
+        u2 = run(self.dec2, j(self.unpool(l3, link2), l2))
+        u1 = run(self.dec1, j(self.unpool(u2, link1), l1))
+        u0 = run(self.dec0, j(self.up(u1, link0), l0))
+        return self.out(self.head(u0), roi)
+
+
+# phase 13: the SCN U-Net's train-mode parameter gradients on the card,
+# each leaf's max|d| over the f64 witness's max|ref|; the card read 1.8e-6
+# there, the CPU in f32 6.0e-3 (PERF.md, section 6)
+SCN_TRAIN_GRAD_BOUND = 1e-4
+
+
+def scn_phase(device, counts, reset_counts) -> dict:
+    """Phase 13: the SCN layer API on the card: a U-Net of its layers on
+    one config-3 event, in f32 on the card and on the CPU and in f64 on the
+    CPU (the witness): a train-mode forward and backward, the running
+    moments it commits, then an eval-mode forward and backward. The card is
+    held to the CPU at max|delta| <= 1e-4 * max|ref| for both outputs, the
+    moments and the eval-mode gradients, and to the witness at
+    SCN_TRAIN_GRAD_BOUND for the train-mode gradients (the CPU's own f32
+    gap to the witness printed beside it); max and average pooling on a
+    fully active 32^3 grid are held to F.max_pool3d / F.avg_pool3d, and
+    no kernel A-E launches. Returns its launches."""
+    import copy
+    import torch.nn.functional as F
+    from uresnet_pytorch_tpu_torch import scn
+    from uresnet_pytorch_tpu_torch.models.norm import commit_batch_moments
+    from uresnet_pytorch_tpu_torch.iotools.synthetic import generate_event
+    none = dict.fromkeys(counts(), 0)
+    reset_counts()
+    torch.manual_seed(SEED)
+    c, v, _ = generate_event(SEED, 0, 512, 3, mean_voxels=int(N_VOXELS * 1.5))
+    n = len(c)
+    cpu_args = (torch.from_numpy(c[None].astype(np.int32)),
+                torch.from_numpy(v[None].astype(np.float32)),
+                torch.tensor([n], dtype=torch.int32))
+    ct = torch.randn((1, n, 5), generator=torch.Generator().manual_seed(1))
+    net_cpu = ScnUNet(3, 512, 16, 5)
+    runs = {"card": (copy.deepcopy(net_cpu).to(device), device,
+                     torch.float32),
+            "cpu": (net_cpu, "cpu", torch.float32),
+            "f64": (copy.deepcopy(net_cpu).double(), "cpu", torch.float64)}
+    results = {}
+
+    def grads(model):
+        g = {k: p.grad.detach().cpu() for k, p in model.named_parameters()}
+        model.zero_grad(set_to_none=True)
+        return g
+    for where, (model, dev, dtype) in runs.items():
+        args = [a.to(dev) for a in cpu_args]
+        args[1] = args[1].to(dtype)
+        w = ct.to(dev, dtype)
+        if dev != "cpu":
+            with torch.no_grad():
+                model(*args)                            # warm-up
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_train = model(*args, train=True)            # batch moments
+        (out_train * w).sum().backward()
+        g_train = grads(model)
+        commit_batch_moments(model)
+        out = model(*args)
+        (out * w).sum().backward()
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        results[where] = {"train": out_train.detach().cpu(),
+                          "eval": out.detach().cpu(), "g_train": g_train,
+                          "g_eval": grads(model),
+                          "moments": {k: b.cpu()
+                                      for k, b in model.named_buffers()},
+                          "ms": (time.perf_counter() - t0) * 1e3}
+    k, cpu, f64 = results["card"], results["cpu"], results["f64"]
+
+    def rel(got, ref):
+        return float((got.double() - ref.double()).abs().max()
+                     / ref.double().abs().max().clamp(min=1e-30))
+    worst = 0.0
+    for name, got, ref in [("train-mode output", k["train"], cpu["train"]),
+                           ("output", k["eval"], cpu["eval"])] + [
+            (m, k["moments"][m], cpu["moments"][m]) for m in cpu["moments"]
+            ] + [(f"eval-mode {g}", k["g_eval"][g], cpu["g_eval"][g])
+                 for g in cpu["g_eval"]]:
+        err = rel(got, ref)
+        require(bool(torch.isfinite(got).all()) and err <= 1e-4,
+                f"SCN U-Net {name}: card vs CPU max|d|/max|ref| {err:.3e}")
+        worst = max(worst, err)
+    print(f"SCN U-Net (m=16, 4 levels) on one config-3 event ({n} voxels): "
+          f"train-mode output, {len(cpu['moments'])} running moments after "
+          f"it, eval output and {len(cpu['g_eval'])} eval-mode parameter "
+          f"gradients card vs CPU, worst max|d|/max|ref| {worst:.3e} (bound "
+          f"1e-4); train forward and backward, eval forward and backward "
+          f"{k['ms']:.1f} ms on the card, {cpu['ms']:.1f} ms on the CPU, "
+          f"{f64['ms']:.1f} ms in f64 on the CPU (host clock, after a "
+          "warm-up on the card)")
+    gaps = {}
+    for where, res in (("card", k), ("cpu", cpu)):
+        gaps[where] = {g: rel(res["g_train"][g], f64["g_train"][g])
+                       for g in f64["g_train"]}
+        top = sorted(gaps[where].items(), key=lambda kv: -kv[1])[:3]
+        moments = max(rel(res["moments"][m], f64["moments"][m])
+                      for m in f64["moments"])
+        print(f"SCN U-Net train-mode gradients, {where} f32 vs the f64 "
+              f"witness, max|d|/max|ref| per leaf: worst "
+              f"{', '.join(f'{g} {e:.3e}' for g, e in top)}; train-mode "
+              f"output {rel(res['train'], f64['train']):.3e}, moments "
+              f"{moments:.3e}")
+    card_cpu = max(rel(k["g_train"][g], cpu["g_train"][g])
+                   for g in gaps["cpu"])
+    print(f"SCN U-Net train-mode gradients card vs CPU: worst {card_cpu:.3e}; "
+          f"bound on the card vs the witness {SCN_TRAIN_GRAD_BOUND:g}")
+    for g, err in gaps["card"].items():
+        require(bool(torch.isfinite(k["g_train"][g]).all())
+                and err <= SCN_TRAIN_GRAD_BOUND, f"SCN U-Net train-mode "
+                f"gradient {g}: card vs f64 witness {err:.3e}")
+    del runs, results, net_cpu, k, cpu, f64
+    torch.cuda.empty_cache()
+
+    S = 32
+    g = np.stack(np.meshgrid(*([np.arange(S)] * 3), indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.int32)
+    vals = torch.randn(len(g), generator=torch.Generator().manual_seed(2))
+    args = (torch.from_numpy(g[None]).to(device), vals[None].to(device),
+            torch.tensor([len(g)], dtype=torch.int32, device=device))
+    st, _ = scn.InputLayer(3, S)(*args)
+    dense = vals.to(device).view(1, 1, S, S, S)
+    for name, layer, pool in (
+            ("max", scn.MaxPooling(3), F.max_pool3d),
+            ("average", scn.AveragePooling(3), F.avg_pool3d)):
+        stc, _ = layer(st)
+        got = stc.features[0, :int(stc.num[0]), 0]
+        want = pool(dense, 2).flatten()
+        err = float((got - want).abs().max()) if got.shape == want.shape \
+            else float("inf")
+        require(err <= 1e-6 * float(want.abs().max()),
+                f"{name} pooling on a full 32^3 grid vs F.{pool.__name__}: "
+                f"max|d| {err}")
+        print(f"{name} pooling on a fully active 32^3 grid vs "
+              f"F.{pool.__name__}: max|d| {err:.3e}")
+    torch.cuda.synchronize()
+    got = counts()
+    require(got == none, f"the SCN API launched a kernel: {got}")
+    print("SCN API: no launch of kernels A-E")
+    return {"scn_api_unet_and_pools": got}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -1395,7 +1851,6 @@ def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its lines
     from uresnet_pytorch_tpu_torch.models import construct
     from uresnet_pytorch_tpu_torch.ops import cuda
-    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg_mod
@@ -1403,12 +1858,7 @@ def main() -> int:
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
     from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                          load_jax_variables)
-    # each kernel's launch counter: (module, attribute)
-    counters = {"halo_conv": (hc_mod, "launches"),
-                "halo_conv_dw": (dw_mod, "launches"),
-                "windowed_gather": (wg_mod, "launches"),
-                "halo26_fwd": (he_mod, "launches_fwd"),
-                "halo26_bwd": (he_mod, "launches_bwd")}
+    counters = counter_modules()
 
     def reset_counts():
         for m, attr in counters.values():
@@ -1425,8 +1875,7 @@ def main() -> int:
                 f"expected {n} kernel-A launches in {what}, got "
                 f"{got['windowed_gather']} ({dict(wg_mod.launches_by_op)})")
 
-    def counts():
-        return {k: getattr(m, attr) for k, (m, attr) in counters.items()}
+    counts = kernel_counts
 
     def extend_by_shape():
         """Kernel D's and E's launches by (t, dim, C, dtype) since the
@@ -2005,6 +2454,18 @@ def main() -> int:
     gather_launches = gather_phase(device, counts, reset_counts, require_a)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
+    # -- phase 12: data parallel at config 5 ------------------------------
+    t12 = time.perf_counter()
+    print(f"phase 12 at {t12 - t_start:.1f} s")
+    dp_launches = dp_phase(cfg4, variables, blob, step_ms)
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+
+    # -- phase 13: the SCN layer API ---------------------------------------
+    t13 = time.perf_counter()
+    print(f"phase 13 at {t13 - t_start:.1f} s")
+    scn_launches = scn_phase(device, counts, reset_counts)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s")
+
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
              "unfused_inference_3_forwards": unfused_launches,
@@ -2012,7 +2473,8 @@ def main() -> int:
              "unfused_training_step": unfused_train,
              "filters12_forward": f12_infer,
              "filters12_training_step": f12_train,
-             **cli_launches, **dense_launches, **gather_launches}
+             **cli_launches, **dense_launches, **gather_launches,
+             **dp_launches, **scn_launches}
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}

@@ -32,6 +32,7 @@ from uresnet_pytorch_tpu_torch.utils.checkpoint import (checkpoint_path,
                                                         restore_checkpoint,
                                                         save_checkpoint)
 from uresnet_pytorch_tpu_torch.utils.weights import _flatten
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 # tests/test_torch_cli.py's flags: `-bs 2 -ss 16 -uns 2 -uf 4 --reps 1
 # --max-voxels 256 --compute-dtype float32 -lr 0.01 --remat-mode none`

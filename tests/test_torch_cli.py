@@ -28,6 +28,7 @@ from uresnet_pytorch_tpu.iotools.h5_io import generate_h5_file
 from uresnet_pytorch_tpu_torch import main_funcs
 from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.flags import URESNET_FLAGS, parse_args
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -258,9 +259,11 @@ def test_dense_iotest(dense_runs):
     assert main_funcs.iotest(cfg) > 0
 
 
-def test_several_gpus_are_not_ported_yet():
+def test_several_gpus_need_a_process_group():
+    """Several ordinals in one process: the ranks are started by
+    parallel.launch (bin/uresnet_torch.py does so for --gpus 0,1)."""
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
-    with pytest.raises(NotImplementedError, match="data parallel"):
+    with pytest.raises(ValueError, match="parallel.launch"):
         TrainVal(TConfig(gpus=(0, 1), spatial_size=32), device="cpu")
 
 

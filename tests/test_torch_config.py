@@ -13,6 +13,7 @@ from uresnet_pytorch_tpu.iotools.synthetic import generate_event
 from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.iotools.synthetic import (
     generate_event as t_generate_event)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _CONFIG3 = dict(uresnet_filters=16, uresnet_num_strides=5, spatial_size=512,
                 reps=2, max_voxels=131072, capacity_factor=0.5,

@@ -46,6 +46,7 @@ from uresnet_pytorch_tpu_torch.trainval import TrainVal
 from uresnet_pytorch_tpu_torch.utils.weights import (export_variables,
                                                      init_params,
                                                      load_jax_variables)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _KW = dict(model_name="uresnet_sparse", sparse_engine="gather", num_class=5,
            uresnet_filters=4, uresnet_num_strides=3, spatial_size=16,

@@ -16,6 +16,7 @@ from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu.iotools.synthetic import generate_event
 from uresnet_pytorch_tpu.ops import tile_graph as jtg
 from uresnet_pytorch_tpu_torch.ops import tile_graph as ttg
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 def _cfgs(**kw):

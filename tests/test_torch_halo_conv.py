@@ -22,6 +22,7 @@ from uresnet_pytorch_tpu.ops.pallas.halo_conv import (
     fused_halo_conv_bn_act, halo_conv_fwd, toeplitz_weights)
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
 from uresnet_pytorch_tpu_torch.ops.halo import build_halo26, halo26_extend
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _DN = ("NDHWC", "DHWIO", "NDHWC")
 ALPHA = 0.1

@@ -31,6 +31,7 @@ from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as hcdw
 from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, body_cells,
                                                 halo26_extend)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 def _dw_case(t, Cin, Cout, seed):

@@ -30,6 +30,7 @@ from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
 from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, build_halo26,
                                                 halo26_extend,
                                                 halo26_transpose)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 B, T = 2, 64
 _GRID = {2: 16, 3: 8}

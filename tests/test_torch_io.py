@@ -27,6 +27,7 @@ from uresnet_pytorch_tpu_torch.iotools.pointcloud import (blob_to_pointcloud,
                                                           pointcloud_to_blob)
 from uresnet_pytorch_tpu_torch.iotools.writer import PredictionWriter
 from uresnet_pytorch_tpu_torch.utils import native
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

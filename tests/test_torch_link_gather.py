@@ -23,6 +23,7 @@ from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.ops import tile_conv as ttc
 from uresnet_pytorch_tpu_torch.ops import tile_graph as ttg
 from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 # (dim, spatial size, tile schedule): a global t=4 graph links t_c=4
 # tiles, the halving schedule an identity link and then t_c=2 links

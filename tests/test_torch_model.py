@@ -30,6 +30,19 @@ from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                      load_jax_variables)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for a test module. The suite runs in six
+    workers on a few cores, and torch's threads spin while they wait: with
+    one per core in every worker a small CPU step takes tens of times its
+    time alone (test_shape_rule_picks_the_path_per_conv: 3.5 s alone, 169 s
+    in the suite). The port's test modules import this fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 _KW = dict(num_class=5, uresnet_filters=4, uresnet_num_strides=3,
            spatial_size=16, data_dim=3, reps=1, max_voxels=256,
            min_level_capacity=32, tile_size=4, min_tiles=64,
@@ -188,6 +201,8 @@ with torch.no_grad():
 assert logits.shape == (1, 64, 5) and torch.isfinite(logits).all()
 import uresnet_pytorch_tpu_torch.utils.scn_import
 import uresnet_pytorch_tpu_torch.utils.torch_import
+import uresnet_pytorch_tpu_torch.scn
+import uresnet_pytorch_tpu_torch.parallel.dryrun
 for other in (cfg.replace(sparse_engine="gather"),
               cfg.replace(model_name="uresnet_dense")):
     model = construct(other.model_name)(other, device="cpu")

@@ -24,6 +24,7 @@ from tests.test_torch_halo_conv import ALPHA, _case, _specs
 from tests.test_torch_halo_extend import _OnCard
 from uresnet_pytorch_tpu.ops import tile_conv as jtc
 from uresnet_pytorch_tpu_torch.ops import tile_conv as ttc
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 def _inputs(pair, seed):

@@ -36,6 +36,7 @@ from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he
 from uresnet_pytorch_tpu_torch.trainval import TrainVal, adam
 from uresnet_pytorch_tpu_torch.utils.weights import (export_variables,
                                                      init_params)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _KW = dict(num_class=5, uresnet_filters=4, uresnet_num_strides=3,
            spatial_size=16, data_dim=3, reps=1, max_voxels=256,

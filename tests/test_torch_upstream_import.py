@@ -23,6 +23,7 @@ from uresnet_pytorch_tpu_torch.utils import scn_import as t_scn
 from uresnet_pytorch_tpu_torch.utils import torch_import as t_ti
 from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                      load_jax_variables)
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _SPARSE = dict(model_name="uresnet_sparse", sparse_engine="gather",
                num_class=5, uresnet_filters=4, uresnet_num_strides=3,

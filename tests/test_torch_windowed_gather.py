@@ -15,6 +15,7 @@ from uresnet_pytorch_tpu.ops.pallas.windowed_gather import gather_forward
 from uresnet_pytorch_tpu.ops.tile_graph import make_gather_spec
 from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg
 from uresnet_pytorch_tpu_torch.ops.tile_graph import GatherSpec
+from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 
 def _spec(seed, B=2, S=96, N=64):

@@ -80,7 +80,7 @@ class URESNetConfig:
 
     # ---- restore / inference ----
     model_path: str = ""                # checkpoint path or glob
-    gpus: Tuple[int, ...] = ()          # one CUDA ordinal, or () for cuda:0
+    gpus: Tuple[int, ...] = ()          # CUDA ordinal per rank; () = current
     resume: bool = False                # restore the latest {weight_prefix}-*.ckpt
 
     # ---- precision / profiling ----

@@ -53,7 +53,8 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     p.add_argument("--weight-key", "-wk", type=str, default="")
     p.add_argument("--model-path", "-mp", type=str, default="")
     p.add_argument("--gpus", type=str, default="",
-                   help="CUDA device ordinal (one; several are not ported)")
+                   help="CUDA ordinals, comma-separated; several start "
+                        "one data-parallel rank each")
     p.add_argument("--resume", action="store_true")
     # precision, memory and tile schedule
     p.add_argument("--compute-dtype", type=str, default=d["compute_dtype"].default)

@@ -15,7 +15,9 @@ V = cfg.max_voxels. Events longer than V are truncated (counted in
 ``self.truncated``). Each epoch's order comes from
 ``np.random.default_rng((seed, epoch))``, as in the reference, so the same
 events arrive in the same order. Under torch.distributed each rank samples
-the rank-strided share of every epoch; otherwise stride 1, offset 0. The
+the rank-strided share of every epoch, batch_size / world events a batch,
+so that a step's ranks together hold the single-process batch's events;
+otherwise stride 1, offset 0. The
 flat point-cloud format (N, dim+2) is in
 :mod:`uresnet_pytorch_tpu_torch.iotools.pointcloud`.
 """
@@ -106,7 +108,9 @@ class IOBase:
 
     # -------- batching --------
     def _next_indices(self) -> np.ndarray:
-        bs = self.cfg.batch_size
+        # a rank's share of the global batch: the ranks' batches of one
+        # step are together the events of one single-process batch
+        bs = self.cfg.batch_size // self.sampler_stride
         out = np.empty(bs, dtype=np.int64)
         for i in range(bs):
             if self._epoch_order is None or self._cursor >= len(self._epoch_order):

@@ -14,6 +14,10 @@ Port of `uresnet_pytorch_tpu/main_funcs.py`, with its loops, CSV columns
   metrics accumulate on the device as tensor adds; batch 0 is fenced by one
   `.item()` and the clock restarts there, and the one host fetch of the
   sums ends the timed pass, so `events_per_sec` is the steady rate.
+- Under a data mesh (`--gpus 0,1`: `bin/uresnet_torch.py` starts one rank
+  per ordinal) every metric is the global batch's, and rank 0 alone
+  prints, writes the CSVs and the checkpoints; the prediction file is not
+  written under several ranks.
 - `profile_dir` takes a `torch.profiler` trace (CPU, and CUDA on the card)
   of the train loop and writes it there as a Chrome trace.
 
@@ -59,12 +63,14 @@ def _maybe_start_profiler(cfg: URESNetConfig, device: torch.device):
 def train(cfg: URESNetConfig, io=None, device="cuda") -> TrainVal:
     tv = TrainVal(cfg, device=device)
     tv.initialize()
+    lead = tv.mesh.rank == 0      # the rank that reports and writes
     io = io or io_factory(cfg)
     io.initialize()
     os.makedirs(cfg.log_dir, exist_ok=True)
     csv = CSVData(os.path.join(cfg.log_dir, "train_log.csv"))
     watch = StopWatch()
-    stop_profiler = _maybe_start_profiler(cfg, tv.device)
+    stop_profiler = (_maybe_start_profiler(cfg, tv.device) if lead
+                     else lambda: None)
     epoch_per_iter = cfg.batch_size / max(1, len(io))
     start_step = tv.global_step
     try:
@@ -75,7 +81,8 @@ def train(cfg: URESNetConfig, io=None, device="cuda") -> TrainVal:
             tio = watch.stop("io")
             watch.start("forward")
             metrics = tv.train_step(blob)
-            report = cfg.report_step > 0 and (it + 1) % cfg.report_step == 0
+            report = (cfg.report_step > 0 and (it + 1) % cfg.report_step == 0
+                      and lead)
             if report:
                 # fetch scalars only on report steps; off-step iterations
                 # stay asynchronous on the device
@@ -128,7 +135,12 @@ def train(cfg: URESNetConfig, io=None, device="cuda") -> TrainVal:
 
 def inference(cfg: URESNetConfig, io=None, device="cuda") -> dict:
     tv = TrainVal(cfg.replace(train=False, model_path=""), device=device)
+    if cfg.output_file and tv.mesh.size > 1:
+        raise NotImplementedError(
+            "the prediction file (-of) under several ranks is not ported "
+            "(ROADMAP, queue 1: the data-parallel prediction writer)")
     tv.initialize()
+    lead = tv.mesh.rank == 0
     ckpts = sorted(glob.glob(cfg.model_path)) if cfg.model_path else [None]
     if cfg.model_path and not ckpts:
         raise FileNotFoundError(f"no checkpoint matches {cfg.model_path!r}")
@@ -181,10 +193,12 @@ def inference(cfg: URESNetConfig, io=None, device="cuda") -> dict:
                          tot_loss / n_iters, tot_acc / n_iters, miou,
                          rate_iters * cfg.batch_size / dt] + list(per_class)
                         + list(iou))
+            last_summary = dict(zip(row_keys, row_vals))
+            if not lead:
+                continue
             csv.record(row_keys, row_vals)
             csv.write()
             csv.flush()
-            last_summary = dict(zip(row_keys, row_vals))
             print(f"inference {last_summary['ckpt']}: loss "
                   f"{last_summary['loss']:.4f} acc {last_summary['accuracy']:.4f} "
                   f"({last_summary['events_per_sec']:.2f} ev/s)", flush=True)

@@ -1,9 +1,9 @@
 """Masked BatchNorm over active voxel rows.
 
 Port of `uresnet_pytorch_tpu/models/norm.py`. Train mode takes the moments
-in f32 over the cells where the mask is set, across every event and row:
-`mean = sum(x*m) / count`, `var = sum((x*m)^2) / count - mean^2` clamped at
-0, `count = max(sum(m), 1)`. Eval mode uses the running moments. Either
+in f32 (f64 for f64 input) over the cells where the mask is set, across
+every event and row: `mean = sum(x*m) / count`, `var = sum((x*m)^2) /
+count - mean^2` clamped at 0, `count = max(sum(m), 1)`. Eval mode uses the running moments. Either
 way scale, bias and moments fold into one per-channel affine computed in
 f32 and rounded once to the activation dtype; `affine` hands that affine
 to a fused conv epilogue instead of applying it.
@@ -19,6 +19,13 @@ records its batch moments; `commit_batch_moments` applies them once after
 the step. Under recompute (torch.utils.checkpoint) the forward runs twice
 and records the same moments twice, so an in-place update there would be
 applied twice.
+
+Under a data mesh of several ranks (`use_mesh`) the moments are the whole
+sharded batch's, as in the reference, whose BN sums run over the sharded
+batch axis under GSPMD: `sum(x*m)`, `sum((x*m)^2)` and `sum(m)` are summed
+over the ranks in one differentiable collective (its backward sums the
+cotangents over the ranks), so the running moments are the same on every
+rank. The pair path reduces both halves in that one collective.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+
+from uresnet_pytorch_tpu_torch.ops.sparse_conv import sum_dtype
+from uresnet_pytorch_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 class MaskedBatchNorm(nn.Module):
@@ -40,6 +50,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
         self.batch_moments = None   # (mean, var) of the last train forward
+        self.mesh = None            # the data mesh the moments span
 
     def affine(self, dtype: torch.dtype, mean=None, var=None):
         """Folded (a, b) with x * a + b == BN(x), rounded once to dtype;
@@ -60,17 +71,17 @@ class MaskedBatchNorm(nn.Module):
         parts = x if pair else (x,)
         mean = var = None
         if train:
-            m = mask[..., None].float()
-            count = m.sum().clamp(min=1.0)
+            acc = sum_dtype(parts[0].dtype)
+            m = mask[..., None].to(acc)
             red = tuple(range(parts[0].dim() - 1))
-            means, sqs = [], []
-            for p in parts:
-                xf = p.float() * m
-                mu = xf.sum(red) / count
-                means.append(mu)
-                sqs.append((xf * xf).sum(red) / count - mu * mu)
-            mean = torch.cat(means)
-            var = torch.maximum(torch.cat(sqs), torch.zeros_like(mean))
+            xfs = [p.to(acc) * m for p in parts]
+            s1 = torch.cat([xf.sum(red) for xf in xfs])
+            s2 = torch.cat([(xf * xf).sum(red) for xf in xfs])
+            s1, s2, n = all_reduce_sum(self.mesh, s1, s2, m.sum(), grad=True)
+            count = n.clamp(min=1.0)
+            mean = s1 / count
+            var = torch.maximum(s2 / count - mean * mean,
+                                torch.zeros_like(mean))
             self.batch_moments = (mean.detach(), var.detach())
         a, b = self.affine(parts[0].dtype, mean, var)
         out, lo = [], 0
@@ -89,6 +100,14 @@ class MaskedBatchNorm(nn.Module):
         self.mean.mul_(self.momentum).add_((1.0 - self.momentum) * mean)
         self.var.mul_(self.momentum).add_((1.0 - self.momentum) * var)
         self.batch_moments = None
+
+
+def use_mesh(module: nn.Module, mesh) -> None:
+    """Every MaskedBatchNorm of `module` (the dense model's BatchNorm too)
+    takes its train-mode moments over `mesh`'s whole batch."""
+    for m in module.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.mesh = mesh
 
 
 def commit_batch_moments(module: nn.Module) -> None:

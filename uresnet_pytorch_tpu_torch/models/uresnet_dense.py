@@ -43,6 +43,7 @@ from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
 from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
     _DTYPES, _lecun_normal, resolve_device)
 from uresnet_pytorch_tpu_torch.ops.voxelize import gather_voxels, voxelize
+from uresnet_pytorch_tpu_torch.parallel.mesh import all_reduce_sum
 
 
 def _channels_last(dim: int) -> torch.memory_format:
@@ -51,14 +52,23 @@ def _channels_last(dim: int) -> torch.memory_format:
 
 class BatchNorm(MaskedBatchNorm):
     """flax's `nn.BatchNorm(dtype=float32)` over (B, C, *S): every cell
-    counts. Keeps MaskedBatchNorm's parameters, buffers and commit."""
+    counts, on every rank of the module's data mesh. Keeps
+    MaskedBatchNorm's parameters, buffers, mesh and commit."""
 
     def forward(self, x, train: bool = False):
         red = (0,) + tuple(range(2, x.dim()))
         xf = x.float()
         if train:
-            mean = xf.mean(red)
-            var = ((xf * xf).mean(red) - mean * mean).clamp(min=0.0)
+            if self.mesh is None or self.mesh.group is None:
+                mean = xf.mean(red)
+                var = ((xf * xf).mean(red) - mean * mean).clamp(min=0.0)
+            else:   # over the whole sharded batch, as flax's BN under GSPMD
+                s1, s2, n = all_reduce_sum(
+                    self.mesh, xf.sum(red), (xf * xf).sum(red),
+                    torch.tensor(float(xf.numel() // xf.shape[1]),
+                                 device=x.device), grad=True)
+                mean = s1 / n
+                var = (s2 / n - mean * mean).clamp(min=0.0)
             self.batch_moments = (mean.detach(), var.detach())
         else:
             mean, var = self.mean, self.var

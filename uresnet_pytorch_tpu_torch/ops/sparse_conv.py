@@ -8,6 +8,7 @@ and one f32 matmul against the (K * Cin, Cout) weight stack sums all
 offsets, rounded once to the activation dtype, as the reference's
 per-offset einsums with f32 accumulation do. Inputs in bfloat16 are
 exact in f32 (and in TF32), so the sum is the reference's up to order.
+Inputs in f64 (a witness run of a model on the CPU) sum in f64.
 
 The backward is gathers too, never a scatter-add (whose atomics pile onto
 the zero row): each map is injective per offset, so the transpose of a
@@ -22,17 +23,22 @@ from __future__ import annotations
 import torch
 
 
+def sum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the engine's sums run in: f32, or f64 for f64 inputs."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 def _rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """(N_out, K * C) f32: the rows of x (N_in, C) at idx (N_out, K), the
-    zero row where idx == N_in."""
-    xz = torch.cat([x.float(), x.new_zeros(1, x.shape[1],
-                                           dtype=torch.float32)])
+    """(N_out, K * C) in x's sum dtype: the rows of x (N_in, C) at idx
+    (N_out, K), the zero row where idx == N_in."""
+    acc = sum_dtype(x.dtype)
+    xz = torch.cat([x.to(acc), x.new_zeros(1, x.shape[1], dtype=acc)])
     return torch.index_select(xz, 0, idx.reshape(-1)).view(idx.shape[0], -1)
 
 
 def _gather_gemm(x, idx, w):
     K, Cin, Cout = w.shape
-    return _rows(x, idx) @ w.float().reshape(K * Cin, Cout)
+    return _rows(x, idx) @ w.to(sum_dtype(x.dtype)).reshape(K * Cin, Cout)
 
 
 class _GatherGemm(torch.autograd.Function):
@@ -53,7 +59,8 @@ class _GatherGemm(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = _gather_gemm(dout, bwd, w.transpose(1, 2)).to(x.dtype)
         if ctx.needs_input_grad[3]:
-            dw = (_rows(x, fwd).t() @ dout.float()).view(w.shape).to(w.dtype)
+            dw = (_rows(x, fwd).t() @ dout.to(sum_dtype(x.dtype))
+                  ).view(w.shape).to(w.dtype)
         return dx, None, None, dw
 
 

@@ -5,7 +5,9 @@ dicts of arrays (numpy, or anything `np.asarray` accepts) and fills the
 port's parameters (`params` collection) and buffers (`batch_stats`) by
 dotted name, e.g. `params/enc0_block0/conv_a/w` -> `enc0_block0.conv_a.w`.
 `export_variables(module)` is the inverse: the module's state as such a
-tree of numpy arrays. `init_params(cfg, generator)` makes a tree from the
+tree of numpy arrays. `load_flax_compact(module, variables)` loads a tree
+whose names flax's compact modules gave (`SubmanifoldConvolution_0`, ...):
+the SCN layer API's (`uresnet_pytorch_tpu_torch/scn.py`). `init_params(cfg, generator)` makes a tree from the
 reference's initializers without JAX.
 """
 
@@ -56,6 +58,51 @@ def load_jax_variables(module: nn.Module, variables: Mapping) -> None:
         missing = sorted(set(targets[coll]) - filled)
         if missing:
             raise KeyError(f"{coll}: no entry for {missing}")
+
+
+_TRANSPARENT = (nn.Sequential, nn.ModuleList, nn.ModuleDict)
+
+
+def _flax_names(module: nn.Module, tprefix: str, fprefix: str,
+                out: dict) -> dict:
+    """{flax module path: torch module path} under `module`: flax names a
+    compact module's children `{Class}_{i}`, counting each class in
+    creation order, here registration order (torch containers add no
+    level)."""
+    counts: dict = {}
+
+    def walk(mod, tpre):
+        for name, child in mod.named_children():
+            if isinstance(child, _TRANSPARENT):
+                walk(child, f"{tpre}{name}.")
+                continue
+            cls = type(child).__name__
+            i = counts[cls] = counts.get(cls, -1) + 1
+            out[f"{fprefix}{cls}_{i}"] = f"{tpre}{name}"
+            _flax_names(child, f"{tpre}{name}.", f"{fprefix}{cls}_{i}.", out)
+    walk(module, tprefix)
+    return out
+
+
+def load_flax_compact(module: nn.Module, variables: Mapping) -> None:
+    """`load_jax_variables` for a tree that flax compact modules made (the
+    SCN layers of `uresnet_pytorch_tpu_torch.scn` composed in a module):
+    each of `module`'s submodules takes the flax name of the same class at
+    the same place in creation order, so the torch module registers its
+    layers in the order the flax one creates them."""
+    names = _flax_names(module, "", "", {})
+    tree = {}
+    for coll in _COLLECTIONS:
+        flat = {}
+        for path, value in _flatten(variables.get(coll, {})):
+            owner, _, leaf = path.rpartition(".")
+            if owner and owner not in names:
+                raise KeyError(f"{coll}.{path}: no module of "
+                               f"{type(module).__name__} takes the flax "
+                               f"name {owner}")
+            flat[f"{names[owner]}.{leaf}" if owner else leaf] = value
+        tree[coll] = _nest(flat)
+    load_jax_variables(module, tree)
 
 
 def _nest(flat: dict) -> dict:
