@@ -50,11 +50,17 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    the fused kernel step (and each gradient against the plain f32 step's
    bf16 noise), the launches of kernels D and E in one step, step time and
    peak memory under "stage_dots" and "none";
-8. drives config 3 and 4 at `uresnet_filters=12`, whose widths 12, 36 and
-   60 kernels B and C refuse, so that the tile conv's shape rule sends
-   those convs to the unfused path: one forward (batch 2) and one training
-   step (batch 1), each held to the plain path at phase 2's and phase 4's
-   bounds, with the exact launches of kernels B-E.
+8. drives config 3 and 4 at four configurations whose widths or tile size
+   make the tile conv's shape rule send some convs to the unfused path
+   (`WIDTH_CASES`): `uresnet_filters=12` (widths 12, 36 and 60, which
+   kernels B and C refuse), `width_ramp="geometric"` (256 -> 256),
+   `uresnet_filters=32` (160 -> 160) and `tile_size=8` with
+   `tile_sizes=None` (the decoder's 96 -> 48 and 128 -> 64 concat convs at
+   t=8, in eval): for each, one forward (batch 2) and one training step
+   (batch 1), each held to the plain path at phase 2's and phase 4's
+   bounds, with the exact launches of kernels A-E, the convs the rule
+   sent to the unfused path, three timed forwards and steps and the peak
+   memory of each;
 9. drives the port's CLI (`flags.parse_args` on a user's argv, then
    `main_funcs`) on synthetic events in a temporary directory: `train` at
    config 4 for 3 iterations with a checkpoint each (3 checkpoints, a
@@ -95,7 +101,12 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    Every step of every rank launches exactly 81 B, 41 C and 21 A, (b)'s
    parameters are `torch.equal` across the ranks after each step; step
    times beside phase 4's ((b) labelled: not a multi-card rate) and peak
-   memory.
+   memory. (c) `main_funcs.inference` with `-of` at config 3 over two
+   checkpoints of 12 events, in one process and on two gloo ranks sharing
+   the card: a recording loader stands in for the h5 file (the card's
+   machine has no h5py), and rank 0 must hand `io.store_segment` the
+   one-process rows (index, coords, n_voxels `torch.equal`, softmax at
+   phase 2's bounds), rank 1 nothing.
 13. drives the SCN layer API (`uresnet_pytorch_tpu_torch.scn`): a U-Net
    of its layers (submanifold convs with BN-LeakyReLU, a stride-2
    Convolution, MaxPooling and AveragePooling down, UnPooling and
@@ -107,6 +118,16 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    (the CPU's f32 gap to it printed beside); max and average pooling on a
    fully active 32^3 grid held to F.max_pool3d / F.avg_pool3d; no launch
    of kernels A-E.
+14. drives the eval pair (`URESNET_EVAL_PAIR=1`, the reference's batch-16
+   memory A/B) at config 3: forwards at batch 16 with the knob unset
+   (concat) and set (pair) from the same variables and events, the pair
+   held to concat and to the plain path at phase 2's bounds, the exact
+   kernel-B and kernel-A launches of each forward (37 and 9 concat, 41 and
+   9 pair), three timed forwards and the peak memory each way, and the
+   same readings at batch 8 beside phase 2's.
+15. times the config-3 forward with `utils.benchmark.timed_step` and the
+   config-4 step with `timed_train` (the port of the reference's timer),
+   beside phase 2's and phase 4's medians.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -124,6 +145,7 @@ import glob
 import importlib.util
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -838,6 +860,17 @@ def grads_and_stats(tv, blob):
     return float(metrics["loss"].detach()), grads, stats
 
 
+def timed_call(fn):
+    """(fn(), its ms on CUDA events), synchronized after."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def timed_steps(tv, blob, warm: int, timed: int):
     """Losses of warm + timed train steps and the device ms of each timed
     one (CUDA events around the whole step, graph build included)."""
@@ -853,6 +886,163 @@ def timed_steps(tv, blob, warm: int, timed: int):
         if i >= warm:
             times.append(start.elapsed_time(end))
     return losses, times, metrics
+
+
+# phase 8: configurations whose widths or tile size make the tile conv's
+# shape rule send some convs to the unfused path, at config 3's and 4's
+# full size: name -> (overrides, kernel B's, D's and A's launches in a
+# forward, kernel B's, C's, D's, E's and A's in a stage_dots step, the
+# (Cin, Cout) convs unfused in the forward and in the step). Kernels B and
+# C refuse Cout 12, 36 and 60 (uresnet_filters=12: widths 12-60), the
+# 256 -> 256 convs at the bottom of the geometric ramp (16-256) and the
+# 160 -> 160 ones at uresnet_filters=32 (32-160); at t=8 (tile_size=8,
+# tile_sizes=None) kernel B refuses the decoder's first convs after the
+# concat at levels 2 and 3 (96 -> 48, 128 -> 64), which in training run
+# as pairs of halves it takes. Of 37 convs a forward, each refused one is
+# a D launch; a step runs 41 (the pairs' halves), 40 d_x and 41 d_W, and
+# recomputes each D but the stem's under stage_dots. Kernel A launches
+# once a link op, at links 1-3 (link 0 is the identity of the 4 -> 2 tile
+# halving): 9 a forward, 21 a step (6 recomputed, 6 backward); at t=8 all
+# four links are real: 12 and 28. tests/test_torch_widths.py holds the
+# same configurations to the reference on the CPU.
+WIDTH_CASES = {
+    "filters12": ({"uresnet_filters": 12}, (16, 21, 9), (36, 18, 45, 22, 21),
+                  {(1, 12), (12, 12), (24, 12), (36, 36), (60, 60),
+                   (72, 36)},
+                  {(1, 12), (12, 12), (36, 36), (60, 60)}),
+    "geometric": ({"width_ramp": "geometric"}, (33, 4, 9),
+                  (73, 37, 8, 4, 21), {(256, 256)}, {(256, 256)}),
+    "filters32": ({"uresnet_filters": 32}, (33, 4, 9), (73, 37, 8, 4, 21),
+                  {(160, 160)}, {(160, 160)}),
+    "tile8": ({"tile_size": 8, "tile_sizes": None}, (35, 2, 12),
+              (81, 41, 0, 0, 28), {(96, 48), (128, 64)}, set()),
+}
+
+
+@contextlib.contextmanager
+def record_rule(calls: list):
+    """Appends (Cin, Cout, fused) for every conv the tile conv's shape rule
+    decides while the block runs; the decisions stay the rule's."""
+    from uresnet_pytorch_tpu_torch.ops import tile_conv
+    rule = tile_conv._fused
+
+    def record(x, t, dim, Cout, dx=False, dw=False):
+        fused = rule(x, t, dim, Cout, dx, dw)
+        calls.append((x.shape[-1], Cout, fused))
+        return fused
+    with mock.patch.object(tile_conv, "_fused", record):
+        yield
+
+
+def width_run(name, device, counts, reset_counts, require_a,
+              extend_by_shape):
+    """Phase 8 for WIDTH_CASES[name]: a forward at config 3's size (batch
+    2) and a stage_dots step at config 4's (batch 1), each held to the
+    plain path at phase 2's and phase 4's bounds, with the exact launches
+    of kernels A-E, the convs the rule sent to the unfused path, kernels
+    D's and E's ms x launches, three timed forwards and steps, and the
+    peak memory of each. Returns ({path: launches}, {run: D/E ms x
+    launches})."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import tile_size_at
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    kw, fwd_want, step_want, eval_unfused, train_unfused = WIDTH_CASES[name]
+    cfg = dataclasses.replace(config3(), **kw)
+    blob = event_blob(cfg, 2)
+    coords, values, nv = (torch.from_numpy(blob[k]).to(device)
+                          for k in ("coords", "values", "n_voxels"))
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    print(f"{name}: widths {cfg.n_planes}, tile sizes "
+          f"{[tile_size_at(cfg, l) for l in range(len(cfg.n_planes))]}, "
+          f"voxels/event {nv.tolist()}")
+    rule, shapes, runs = [], {}, {}
+    with torch.no_grad():
+        reset_counts()
+        with record_extend(shapes, "forward"), record_rule(rule):
+            logits, diag = model(coords, values, nv)
+        torch.cuda.synchronize()
+        fwd, fwd_shapes = counts(), extend_by_shape()
+        torch.cuda.reset_peak_memory_stats()
+        times = [timed_call(lambda: model(coords, values, nv))[1]
+                 for _ in range(3)]
+        peak_fwd = torch.cuda.max_memory_allocated()
+        require(counts() == {k: 4 * v for k, v in fwd.items()},
+                f"{name}: the timed forwards launched {counts()}, not 3 x "
+                f"{fwd}")
+        before = counts()
+        with plain_versions():
+            ref, _ = model(coords, values, nv)
+        torch.cuda.synchronize()
+        require(counts() == before, "the plain-path forward launched a "
+                "kernel")
+        runs[f"{name}_forward"] = extend_per_run(
+            shapes, device, f"{name} forward", fwd_shapes)
+    unfused = {(ci, co) for ci, co, f in rule if not f}
+    print(f"{name}: launches in one forward (batch 2): {fwd}; convs on the "
+          f"unfused path {sorted(unfused)} of {len(rule)}")
+    require(unfused == eval_unfused, f"{name}: the rule sent "
+            f"{sorted(unfused)} to the unfused path in the forward, expected "
+            f"{sorted(eval_unfused)}")
+    require((fwd["halo_conv"], fwd["halo26_fwd"]) == fwd_want[:2]
+            and fwd["halo_conv_dw"] == fwd["halo26_bwd"] == 0,
+            f"{name}: expected {fwd_want[0]} fused (B) and {fwd_want[1]} "
+            f"unfused (D) convs in the forward, and no C or E")
+    require_a(fwd_want[2], fwd, f"the {name} forward")
+    valid = torch.arange(cfg.max_voxels, device=device)[None] < nv[:, None]
+    require(int(diag["overflow"]) == 0 and bool(torch.isfinite(logits).all())
+            and bool((logits[~valid] == 0).all()),
+            f"{name} logits: overflow, non-finite or nonzero padding")
+    compare_logits(logits, ref, valid, f"{name} kernel vs plain logits")
+    ms_fwd = sorted(times)[1]
+    print(f"{name} forward (batch 2), 3 runs: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms; median {ms_fwd:.1f} "
+          f"ms; peak memory {peak_fwd / 2**30:.2f} GiB")
+    del model, logits, ref, coords, values, nv, valid
+    torch.cuda.empty_cache()
+
+    cfg4 = dataclasses.replace(config4(), batch_size=1, **kw)
+    variables = init_params(cfg4, torch.Generator().manual_seed(cfg4.seed))
+    blob1 = event_blob(cfg4, 1)
+    reset_counts()
+    shapes = {}
+    with record_extend(shapes, "step"):   # the kernel step's launches only
+        compare_step(cfg4, variables, blob1, counts,
+                     f"{name} kernel vs plain")
+    step = counts()
+    runs[f"{name}_step"] = extend_per_run(shapes, device, f"{name} step",
+                                          extend_by_shape())
+    print(f"{name}: launches in one stage_dots step (batch 1): {step}")
+    require((step["halo_conv"], step["halo_conv_dw"], step["halo26_fwd"],
+             step["halo26_bwd"]) == step_want[:4],
+            f"{name}: expected B, C, D, E launches {step_want[:4]} in the "
+            "step")
+    require_a(step_want[4], step, f"the {name} step")
+    tv = TrainVal(cfg4)
+    tv.initialize(variables)
+    rule = []
+    with record_rule(rule):
+        timed_steps(tv, blob1, 1, 0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, metrics = timed_steps(tv, blob1, 0, 3)
+    peak_step = torch.cuda.max_memory_allocated()
+    unfused = {(ci, co) for ci, co, f in rule if not f}
+    require(unfused == train_unfused, f"{name}: the rule sent "
+            f"{sorted(unfused)} to the unfused path in the step, expected "
+            f"{sorted(train_unfused)}")
+    require(all(np.isfinite(losses)) and int(metrics["overflow"]) == 0,
+            f"{name}: a non-finite loss or a graph overflow in training")
+    step_ms = sorted(times)[1]
+    print(f"{name}: convs on the unfused path in the step {sorted(unfused)};"
+          f" train step (batch 1), 3 runs after 1: "
+          f"{', '.join(f'{t:.1f}' for t in times)} ms; median {step_ms:.1f} "
+          f"ms; peak memory {peak_step / 2**30:.2f} GiB")
+    del tv
+    return ({f"{name}_forward": fwd, f"{name}_training_step": step}, runs)
+
 
 
 # kernel A's device function, and that of the one-warp-per-row kernel A
@@ -1843,6 +2033,253 @@ def scn_phase(device, counts, reset_counts) -> dict:
     return {"scn_api_unet_and_pools": got}
 
 
+def recording_io(cfg, n_events: int, mean_voxels: int):
+    """The synthetic loader, whose `store_segment` records the rows it is
+    handed (index, coords, n_voxels, softmax) in `.stored` instead of
+    writing the h5 file: the card's machine has no h5py. Built inside each
+    rank, where the loader reads its rank-strided share."""
+    from uresnet_pytorch_tpu_torch.iotools.io_synthetic import IOSynthetic
+
+    class RecordingIO(IOSynthetic):
+        def store_segment(self, index, blob, softmax):
+            self.stored.append({
+                "index": torch.from_numpy(np.array(index)),
+                "coords": torch.from_numpy(np.array(blob["coords"])),
+                "n_voxels": torch.from_numpy(np.array(blob["n_voxels"])),
+                "softmax": torch.from_numpy(np.array(softmax))})
+
+    io = RecordingIO(cfg, n_events=n_events, mean_voxels=mean_voxels)
+    io.stored = []
+    return io
+
+
+def writer_rank(cfg, n_events: int, out: str) -> None:
+    """One rank of phase 12 (c), in a process that `parallel.launch`
+    started: `main_funcs.inference` with `-of` on a recording loader.
+    Writes the rows this rank handed the writer and its kernel launches
+    to out.format(rank)."""
+    import torch.distributed as dist
+    from uresnet_pytorch_tpu_torch import main_funcs
+    io = recording_io(cfg, n_events, int(N_VOXELS * 1.5))
+    before = kernel_counts()
+    main_funcs.inference(cfg, io=io)
+    torch.cuda.synchronize()
+    torch.save({"stored": io.stored, "world": dist.get_world_size(),
+                "backend": dist.get_backend(),
+                "launches": {k: v - before[k]
+                             for k, v in kernel_counts().items()}},
+               out.format(dist.get_rank()))
+
+
+def writer_phase(device, counts, reset_counts, require_a) -> dict:
+    """Phase 12 (c): the data-parallel prediction writer. `main_funcs
+    .inference` with `-of` at config 3 (batch 8) over two checkpoints of
+    12 shuffled events, one loader thread: in one process, and on two gloo
+    ranks sharing the card (4 events a rank). The second checkpoint's
+    batch crosses the epoch. Rank 0 must hand the writer the one-process
+    rows: index, coords and n_voxels `torch.equal`, softmax at phase 2's
+    bounds; rank 1 nothing. Returns each run's launches."""
+    from uresnet_pytorch_tpu_torch import main_funcs
+    from uresnet_pytorch_tpu_torch.flags import parse_args
+    from uresnet_pytorch_tpu_torch.parallel import launch
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    print("h5py is not on the card's machine: a recording loader captures "
+          "what rank 0 hands io.store_segment, in place of the h5 file")
+    n_events, n_fwd = 12, 2
+    with tempfile.TemporaryDirectory() as d:
+        _, cfg = parse_args(cli_argv(
+            "inference", d, BATCH, "-mp", os.path.join(d, "snap-*.ckpt"),
+            "-nt", "1", "-of", os.path.join(d, "pred.h5")))
+        require_model_of(cfg, config3(), "inference -of")
+        tv = TrainVal(cfg.replace(model_path=""))
+        tv.initialize()
+        path = tv.save_state(1)
+        shutil.copy(path, os.path.join(d, "snap-2.ckpt"))
+        del tv
+        reset_counts()
+        io = recording_io(cfg, n_events, int(N_VOXELS * 1.5))
+        main_funcs.inference(cfg, io=io)
+        torch.cuda.synchronize()
+        one, one_launches = io.stored, counts()
+        torch.cuda.empty_cache()
+        out = os.path.join(d, "rank{}.pt")
+        t0 = time.perf_counter()
+        launch(writer_rank, 2, device_ids=(0, 0), args=(cfg, n_events, out))
+        print(f"(c) two gloo ranks on one card, inference -of: "
+              f"{time.perf_counter() - t0:.1f} s with their start")
+        ranks = [torch.load(out.format(r), weights_only=False)
+                 for r in range(2)]
+    require(all((r["backend"], r["world"]) == ("gloo", 2) for r in ranks),
+            "(c) did not run gloo over two ranks")
+    require((one_launches["halo_conv"], one_launches["windowed_gather"])
+            == (37 * n_fwd, 9 * n_fwd), f"(c) one process: launches "
+            f"{one_launches}, expected 37 B and 9 A a forward")
+    for r, run in enumerate(ranks):
+        got = run["launches"]
+        require((got["halo_conv"], got["windowed_gather"])
+                == (37 * n_fwd, 9 * n_fwd), f"(c) rank {r}: launches {got}, "
+                "expected 37 B and 9 A a forward")
+    require(ranks[1]["stored"] == [], f"(c) rank 1 handed the writer "
+            f"{len(ranks[1]['stored'])} batches")
+    got = ranks[0]["stored"]
+    require(len(one) == len(got) == n_fwd, f"(c) batches stored: one "
+            f"process {len(one)}, rank 0 {len(got)}, expected {n_fwd}")
+    for i, (g, w) in enumerate(zip(got, one)):
+        for key in ("index", "coords", "n_voxels"):
+            require(g[key].dtype == w[key].dtype and torch.equal(g[key],
+                                                                 w[key]),
+                    f"(c) batch {i}: rank 0's {key} differs from one "
+                    "process's")
+        valid = (torch.arange(w["coords"].shape[1])[None]
+                 < w["n_voxels"][:, None])
+        compare_logits(g["softmax"].to(device), w["softmax"].to(device),
+                       valid.to(device), f"(c) batch {i} (entries "
+                       f"{w['index'].tolist()}): rank 0's softmax vs one "
+                       "process's")
+    print(f"(c) rank 0 handed the writer the one-process rows of {n_fwd} "
+          "batches (index, coords, n_voxels torch.equal; the second crosses "
+          "the epoch); rank 1 handed it nothing")
+    return {"writer_one_process_2_forwards": one_launches,
+            "writer_gloo_2_ranks_2_forwards_per_rank": ranks[0]["launches"]}
+
+
+def eval_pair_phase(device, counts, reset_counts, require_a, ms2: float,
+                    peak2: int) -> dict:
+    """Phase 14: the reference's batch-16 memory A/B, `URESNET_EVAL_PAIR`,
+    at config 3 on the card. Forwards at batch 16 with the knob unset
+    (concat) and set (pair) from the same variables and events: pair held
+    to concat and to the plain path (knob set) at phase 2's bounds; the
+    exact kernel-B and kernel-A launches of each forward (37 and 9 with
+    concat, 41 and 9 with the pair); three timed forwards each way
+    (median) and the peak memory each way, reset before each. The same
+    two readings at batch 8 beside phase 2's. Returns each run's
+    launches."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    cfg = config3()
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    want = {"concat": 37, "pair": 41}
+    launches, readings = {}, {}
+    for batch in (16, 8):
+        blob = event_blob(cfg, batch)
+        x = [torch.from_numpy(blob[k]).to(device)
+             for k in ("coords", "values", "n_voxels")]
+        if batch == 16:
+            print(f"config 3 at batch 16: voxels/event "
+                  f"{x[2].tolist()}")
+        out = {}
+        for mode in ("concat", "pair"):
+            with mock.patch.dict(os.environ), torch.no_grad():
+                os.environ.pop("URESNET_EVAL_PAIR", None)
+                if mode == "pair":
+                    os.environ["URESNET_EVAL_PAIR"] = "1"
+                model(*x)                                # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                reset_counts()
+                torch.cuda.reset_peak_memory_stats()
+                times, per = [], []
+                for _ in range(3):
+                    before = counts()
+                    (logits, diag), t_ms = timed_call(lambda: model(*x))
+                    times.append(t_ms)
+                    per.append({k: v - before[k]
+                                for k, v in counts().items()})
+                peak = torch.cuda.max_memory_allocated()
+                total = counts()
+                if batch == 16 and mode == "pair":
+                    with plain_versions():
+                        plain, _ = model(*x)
+                    torch.cuda.synchronize()
+                    require(counts() == total,
+                            "the plain-path forward launched a kernel")
+            for i, got in enumerate(per):
+                require((got["halo_conv"], got["halo_conv_dw"],
+                         got["halo26_fwd"], got["halo26_bwd"])
+                        == (want[mode], 0, 0, 0),
+                        f"batch {batch} {mode} forward {i + 1}: launches "
+                        f"{got}, expected {want[mode]} B and no C, D or E")
+                require_a(9, got, f"batch {batch} {mode} forward {i + 1}")
+            require(int(diag["overflow"]) == 0
+                    and bool(torch.isfinite(logits).all()),
+                    f"batch {batch} {mode}: overflow or non-finite logits")
+            launches[f"eval_{mode}_b{batch}_3_forwards"] = total
+            ms = sorted(times)[1]
+            readings[batch, mode] = (ms, peak)
+            out[mode] = logits
+            print(f"batch {batch} eval {mode}: launches a forward "
+                  f"{per[0]}; 3 runs {', '.join(f'{t:.1f}' for t in times)} "
+                  f"ms, median {ms:.1f} ms = {batch / (ms / 1e3):.2f} "
+                  f"events/s; peak memory {peak / 2**30:.2f} GiB")
+        if batch == 16:
+            valid = (torch.arange(cfg.max_voxels, device=device)[None]
+                     < x[2][:, None])
+            require(bool((out["pair"][~valid] == 0).all()),
+                    "pair logits: nonzero padding")
+            compare_logits(out["pair"], out["concat"], valid,
+                           "batch 16 eval pair vs concat logits")
+            compare_logits(out["pair"], plain, valid,
+                           "batch 16 eval pair vs plain-path pair logits")
+            del plain, valid
+        del out, logits, x
+        torch.cuda.empty_cache()
+    for batch in (16, 8):
+        (mc, pc), (mp, pp) = readings[batch, "concat"], readings[batch, "pair"]
+        print(f"batch {batch}: pair / concat forward median {mp:.1f} / "
+              f"{mc:.1f} ms, peak memory {pp / 2**30:.2f} / "
+              f"{pc / 2**30:.2f} GiB"
+              + (f" (phase 2, concat: {ms2:.1f} ms, {peak2 / 2**30:.2f} GiB)"
+                 if batch == 8 else ""))
+    return launches
+
+
+def timer_phase(device, ms2: float, step_ms: float) -> None:
+    """Phase 15: `utils.benchmark`, the port of the reference's timer:
+    the config-3 forward (batch 8) with `timed_step`, its logits' sum
+    chained into the next call's values (times 0, so the values stay
+    exact), and the config-4 step (batch 2) through `TrainVal` with
+    `timed_train`, beside phase 2's and phase 4's medians on CUDA events.
+    No limit is set on either reading."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.benchmark import (timed_step,
+                                                           timed_train)
+    from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
+                                                         load_jax_variables)
+    cfg = config3()
+    model = construct("uresnet_sparse")(cfg)
+    load_jax_variables(model, init_params(
+        cfg, torch.Generator().manual_seed(SEED)))
+    coords, values, nv = events(cfg, device)
+
+    def forward(chain, model, coords, values, nv):
+        logits, _ = model(coords, values + chain * 0.0, nv)
+        return logits.float().sum() * 1e-30
+
+    with torch.no_grad():
+        fwd_s = timed_step(forward, (model, coords, values, nv))
+    del model, coords, values, nv
+    torch.cuda.empty_cache()
+    cfg4 = config4()
+    tv = TrainVal(cfg4)
+    tv.initialize(init_params(cfg4, torch.Generator().manual_seed(cfg4.seed)))
+    step_s = timed_train(lambda tv_, b: (tv_, tv_.train_step(b)), tv,
+                         event_blob(cfg4, BATCH4))
+    require(tv.global_step == 12, f"timed_train took {tv.global_step} steps, "
+            "expected 2 * (1 + 5)")
+    print(f"utils.benchmark: config-3 forward {fwd_s * 1e3:.1f} ms a call "
+          f"(timed_step, slope of 1 and 5 chained calls; phase 2's median "
+          f"{ms2:.1f} ms on CUDA events); config-4 step "
+          f"{step_s * 1e3:.1f} ms (timed_train; phase 4's median "
+          f"{step_ms:.1f} ms)")
+    del tv
+    torch.cuda.empty_cache()
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -2376,64 +2813,15 @@ def main() -> int:
               f"memory {peak_u_none / 2**30:.2f} GiB")
         del tv
 
-    # -- phase 8: uresnet_filters=12, where the shape rule mixes the paths -
+    # -- phase 8: widths where the shape rule mixes the paths --------------
     print(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
-    # widths 12, 24, 36, 48, 60: kernels B and C take Cout 24 and 48 only,
-    # so the convs of 12, 36 and 60 output channels take the unfused path
-    cfg12 = dataclasses.replace(cfg, uresnet_filters=12)
-    blob12 = event_blob(cfg12, 2)
-    coords, values, nv = (torch.from_numpy(blob12[k]).to(device)
-                          for k in ("coords", "values", "n_voxels"))
-    model = construct("uresnet_sparse")(cfg12)
-    load_jax_variables(model, init_params(
-        cfg12, torch.Generator().manual_seed(SEED)))
-    with torch.no_grad():
-        reset_counts()
-        shapes = {}
-        with record_extend(shapes, "forward"):
-            logits, diag = model(coords, values, nv)
-        torch.cuda.synchronize()
-        f12_infer, f12_shapes = counts(), extend_by_shape()
-        with plain_versions():
-            ref, _ = model(coords, values, nv)
-        torch.cuda.synchronize()
-    print(f"launches in one uresnet_filters=12 forward (batch 2): "
-          f"{f12_infer}")
-    require(counts() == f12_infer, "the plain-path forward launched a kernel")
-    with torch.no_grad():
-        ext_runs["filters12_forward"] = extend_per_run(
-            shapes, device, "uresnet_filters=12 forward", f12_shapes)
-    del shapes
-    require(f12_infer["halo_conv"] == 16 and f12_infer["halo26_fwd"] == 21,
-            "expected 16 fused and 21 unfused convs in the filters=12 "
-            "forward")
-    require_a(9, f12_infer, "the filters=12 forward")
-    valid = torch.arange(cfg12.max_voxels, device=device)[None] < nv[:, None]
-    require(int(diag["overflow"]) == 0 and bool(torch.isfinite(logits).all())
-            and bool((logits[~valid] == 0).all()),
-            "filters=12 logits: overflow, non-finite or nonzero padding")
-    compare_logits(logits, ref, valid, "filters=12 kernel vs plain logits")
-    del model, logits, ref, coords, values, nv, valid
-    cfg12_4 = dataclasses.replace(cfg4, uresnet_filters=12, batch_size=1)
-    reset_counts()
-    shapes = {}
-    with record_extend(shapes, "step"):   # the kernel step's launches only
-        compare_step(cfg12_4, init_params(
-            cfg12_4, torch.Generator().manual_seed(cfg4.seed)),
-            event_blob(cfg12_4, 1), counts, "filters=12 kernel vs plain")
-    f12_train = counts()
-    ext_runs["filters12_step"] = extend_per_run(
-        shapes, device, "uresnet_filters=12 step", extend_by_shape())
-    del shapes
-    print(f"launches in one uresnet_filters=12 stage_dots step (batch 1): "
-          f"{f12_train}")
-    require((f12_train["halo_conv"], f12_train["halo_conv_dw"],
-             f12_train["halo26_fwd"], f12_train["halo26_bwd"])
-            == (36, 18, 45, 22),
-            "expected B 36 (18 forward + 18 d_x), C 18, D 45 (23 forward + "
-            "22 recomputed) and E 22 launches in the filters=12 step")
-    require_a(21, f12_train, "the filters=12 step")
-    torch.cuda.empty_cache()
+    width_launches = {}
+    for name in WIDTH_CASES:
+        got, runs = width_run(name, device, counts, reset_counts, require_a,
+                              extend_by_shape)
+        width_launches.update(got)
+        ext_runs.update(runs)
+        torch.cuda.empty_cache()
 
     # -- phase 9: the CLI: train, restore, inference, iotest ---------------
     print(f"phase 9 at {time.perf_counter() - t_start:.1f} s")
@@ -2458,6 +2846,7 @@ def main() -> int:
     t12 = time.perf_counter()
     print(f"phase 12 at {t12 - t_start:.1f} s")
     dp_launches = dp_phase(cfg4, variables, blob, step_ms)
+    dp_launches.update(writer_phase(device, counts, reset_counts, require_a))
     print(f"phase 12: {time.perf_counter() - t12:.1f} s")
 
     # -- phase 13: the SCN layer API ---------------------------------------
@@ -2466,15 +2855,27 @@ def main() -> int:
     scn_launches = scn_phase(device, counts, reset_counts)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s")
 
+    # -- phase 14: the eval pair (URESNET_EVAL_PAIR) at batch 16 -----------
+    t14 = time.perf_counter()
+    print(f"phase 14 at {t14 - t_start:.1f} s")
+    pair_launches = eval_pair_phase(device, counts, reset_counts, require_a,
+                                    ms, peak)
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s")
+
+    # -- phase 15: the benchmark timer (utils/benchmark.py) ----------------
+    t15 = time.perf_counter()
+    print(f"phase 15 at {t15 - t_start:.1f} s")
+    timer_phase(device, ms, step_ms)
+    print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
              "unfused_inference_3_forwards": unfused_launches,
              "f32_inference_forward": f32_launches,
              "unfused_training_step": unfused_train,
-             "filters12_forward": f12_infer,
-             "filters12_training_step": f12_train,
+             **width_launches,
              **cli_launches, **dense_launches, **gather_launches,
-             **dp_launches, **scn_launches}
+             **dp_launches, **scn_launches, **pair_launches}
 
     def by_path(name):
         return {p: c[name] for p, c in paths.items()}
@@ -2503,6 +2904,9 @@ def main() -> int:
          "bound_by": b0[4], "library_ms": None,
          "ms_by_shape": {k: r[1] for k, r in (*halo_res.items(),
                                               *dx_res.items())},
+         "launches_per_eval_forward": {
+             mode: pair_launches[f"eval_{mode}_b16_3_forwards"]["halo_conv"]
+             // 3 for mode in ("concat", "pair")},
          "branch_checks": branch_checks(b_branch)},
         {"name": "halo_conv_dw", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/halo_conv_dw.cu",

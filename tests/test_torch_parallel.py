@@ -22,9 +22,14 @@ temporary directory:
 - the dense model's and the gather engine's DP step against the port's own
   one-process step, at the same bounds as the tile engine's.
 
+- `gather_rows` on tensors of four dtypes packed at unaligned offsets:
+  rank 0 receives both ranks' copies, rank 1 nothing.
+
 Then the dry run `dryrun_multichip(2)`, the CLI's `train --gpus 0,1` (two
 gloo ranks on the CPU: rank 0 alone writes the CSV and the checkpoints),
-and the loader's per-rank share of a batch.
+its `inference -of --gpus 0,1` (rank 0 alone writes the prediction file,
+which equals the one-process file), and the loader's per-rank share of a
+batch.
 """
 
 import os
@@ -44,7 +49,8 @@ from uresnet_pytorch_tpu.trainval import TrainVal as JTrainVal
 from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.iotools import io_factory
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
-from uresnet_pytorch_tpu_torch.parallel import (DataMesh, launch, make_mesh,
+from uresnet_pytorch_tpu_torch.parallel import (DataMesh, gather_rows,
+                                                launch, make_mesh,
                                                 shard_batch)
 from uresnet_pytorch_tpu_torch.parallel.dryrun import (dryrun_multichip,
                                                        example_blob,
@@ -145,7 +151,18 @@ def _ranks(out_dir, variables, blob, dense, gather, bn):
     x, x2, mask, ct = bn
     half = slice(2 * rank, 2 * rank + 2)
     res["bn"] = _bn_run(x[half], x2[half], mask[half], ct[half])
+    res["gathered"] = gather_rows(make_mesh(devices="cpu"),
+                                  *_gather_inputs(rank))
     torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+
+
+def _gather_inputs(rank):
+    """Rank r's tensors for gather_rows: 12 bytes of int32 ahead of an
+    int64, so the int64 starts at an offset that is no multiple of 8."""
+    return (torch.arange(3, dtype=torch.int32) + 10 * rank,
+            torch.tensor([2 ** 40 + rank, -rank], dtype=torch.int64),
+            torch.full((2, 3), 0.5 + rank, dtype=torch.float32),
+            torch.tensor([rank == 1, True]))
 
 
 def _variables(kw, seed):
@@ -277,6 +294,19 @@ def test_batch_norm_moments_span_the_ranks(dp, case):
             np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6)
 
 
+def test_gather_rows_hands_rank0_every_rank(dp):
+    got = dp["ranks"][0]["gathered"]
+    assert dp["ranks"][1]["gathered"] is None
+    want = [torch.stack(t) for t in zip(*map(_gather_inputs, range(2)))]
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    # without a process group: each tensor as it is, under an axis of one
+    one = gather_rows(make_mesh(devices="cpu"), *_gather_inputs(0))
+    assert all(torch.equal(g, t[None])
+               for g, t in zip(one, _gather_inputs(0)))
+
+
 @pytest.mark.parametrize("model", ["dense", "gather"])
 def test_other_models_take_a_dp_step(dp, model):
     want = dp[model]
@@ -305,16 +335,22 @@ def test_dryrun_multichip(capsys):
     assert "dryrun_multichip(2): ok, loss=" in capsys.readouterr().out
 
 
-def test_cli_trains_on_two_ranks(tmp_path, monkeypatch):
-    """`bin/uresnet_torch.py train --gpus 0,1` on the CPU: two gloo ranks;
-    rank 0 alone writes the log and the checkpoints, which hold the
-    replicated state, and a fresh process restores it."""
+def _cli():
+    """bin/uresnet_torch.py as a module."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "uresnet_torch_cli", os.path.join(os.path.dirname(__file__), "..",
                                           "bin", "uresnet_torch.py"))
     cli = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cli)
+    return cli
+
+
+def test_cli_trains_on_two_ranks(tmp_path, monkeypatch):
+    """`bin/uresnet_torch.py train --gpus 0,1` on the CPU: two gloo ranks;
+    rank 0 alone writes the log and the checkpoints, which hold the
+    replicated state, and a fresh process restores it."""
+    cli = _cli()
     argv = ["train", "-io", "synthetic", "-bs", "2", "-it", "2", "-rs", "1",
             "-chks", "2", "-mn", "uresnet_sparse", "-ss", "16", "-uns", "2",
             "-uf", "4", "--max-voxels", "128", "-nt", "1", "--gpus", "0,1",
@@ -324,6 +360,50 @@ def test_cli_trains_on_two_ranks(tmp_path, monkeypatch):
     rows = (tmp_path / "log" / "train_log.csv").read_text().splitlines()
     assert len(rows) == 3 and rows[0].startswith("iter,epoch,loss")
     assert sorted(os.listdir(tmp_path / "w")) == ["snap-2.ckpt"]
+
+
+def test_cli_inference_writes_on_two_ranks(tmp_path, monkeypatch):
+    """`bin/uresnet_torch.py inference -of ... --gpus 0,1` on the CPU: two
+    gloo ranks over two checkpoints of 10 shuffled events at batch 4, so
+    the second pass wraps an epoch inside a batch (each rank's strided
+    share holds 5). Rank 0 alone writes the file, and it is the
+    one-process run's: entries, row_splits, coords and values bitwise,
+    softmax within 1e-6 of its largest magnitude."""
+    import h5py
+    from uresnet_pytorch_tpu_torch.iotools.h5_io import generate_h5_file
+    cli = _cli()
+    h5 = generate_h5_file(str(tmp_path / "events.h5"), n_events=10,
+                          spatial_size=16, data_dim=3, seed=7,
+                          mean_voxels=120)
+    base = ["-io", "h5", "-if", h5, "-bs", "4", "-ss", "16", "-uns", "2",
+            "-uf", "4", "--reps", "1", "--max-voxels", "256",
+            "--compute-dtype", "float32", "-nt", "1"]
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")     # the ranks inherit it
+    cli.main(["train", *base, "-it", "2", "-chks", "1", "-rs", "1",
+              "-wp", str(tmp_path / "w" / "snap"),
+              "-ld", str(tmp_path / "train")], device="cpu")
+    files = {}
+    for name, gpus in (("one", []), ("two", ["--gpus", "0,1"])):
+        files[name] = tmp_path / f"{name}.h5"
+        cli.main(["inference", *base, *gpus,
+                  "-mp", str(tmp_path / "w" / "snap-*.ckpt"),
+                  "-of", str(files[name]), "-ld", str(tmp_path / name)],
+                 device="cpu")
+    with h5py.File(files["two"]) as a, h5py.File(files["one"]) as b:
+        pa, pb = a["prediction"], b["prediction"]
+        assert len(pb["entries"]) == 16            # 2 checkpoints x 2 x 4
+        for key in ("entries", "row_splits", "coords", "values"):
+            assert pa[key].dtype == pb[key].dtype, key
+            np.testing.assert_array_equal(pa[key][()], pb[key][()],
+                                          err_msg=key)
+        sa, sb = pa["softmax"][()], pb["softmax"][()]
+        assert sa.dtype == sb.dtype == np.float32
+        np.testing.assert_allclose(sa, sb, rtol=0,
+                                   atol=1e-6 * np.abs(sb).max())
+        # the second pass's first batch crosses the epoch: the two events
+        # the first pass left, then the next epoch's
+        entries = pb["entries"][()]
+        assert set(entries[8:10]) == set(range(10)) - set(entries[:8])
 
 
 def test_loader_ranks_share_the_batch():

@@ -16,8 +16,10 @@ Port of `uresnet_pytorch_tpu/main_funcs.py`, with its loops, CSV columns
   sums ends the timed pass, so `events_per_sec` is the steady rate.
 - Under a data mesh (`--gpus 0,1`: `bin/uresnet_torch.py` starts one rank
   per ordinal) every metric is the global batch's, and rank 0 alone
-  prints, writes the CSVs and the checkpoints; the prediction file is not
-  written under several ranks.
+  prints, writes the CSVs, the checkpoints and the prediction file (`-of`):
+  each batch's rows of every rank reach it in one collective
+  (`parallel.gather_rows`), and it stores them in the one-process batch's
+  order, so the file is the one-process file.
 - `profile_dir` takes a `torch.profiler` trace (CPU, and CUDA on the card)
   of the train loop and writes it there as a Chrome trace.
 
@@ -38,6 +40,7 @@ import torch
 
 from uresnet_pytorch_tpu_torch.config import URESNetConfig
 from uresnet_pytorch_tpu_torch.iotools import io_factory
+from uresnet_pytorch_tpu_torch.parallel.mesh import gather_rows
 from uresnet_pytorch_tpu_torch.trainval import TrainVal
 from uresnet_pytorch_tpu_torch.utils import CSVData, StopWatch
 
@@ -133,12 +136,27 @@ def train(cfg: URESNetConfig, io=None, device="cuda") -> TrainVal:
     return tv
 
 
+def _store_predictions(io, tv: TrainVal, blob, softmax) -> None:
+    """Hand the writer one global batch's rows, on rank 0 alone. Each rank
+    holds batch_size / ranks events of the loader's rank-strided share
+    (iotools/io_base.py), so rank r's j-th event is the one-process batch's
+    event ranks * j + r: the rows gathered on rank 0 interleave back into
+    that order."""
+    rows = gather_rows(tv.mesh, *(torch.as_tensor(np.asarray(blob[k]))
+                                  for k in ("coords", "n_voxels", "index")),
+                       softmax.float())
+    if rows is None:                  # not rank 0
+        return
+    # (ranks, bs, ...) -> (bs * ranks, ...), rank r's row j at j * ranks + r
+    coords, n_voxels, index, softmax = (
+        r.transpose(0, 1).reshape(-1, *r.shape[2:]).cpu().numpy()
+        for r in rows)
+    io.store_segment(index, {"coords": coords, "n_voxels": n_voxels,
+                             "index": index}, softmax)
+
+
 def inference(cfg: URESNetConfig, io=None, device="cuda") -> dict:
     tv = TrainVal(cfg.replace(train=False, model_path=""), device=device)
-    if cfg.output_file and tv.mesh.size > 1:
-        raise NotImplementedError(
-            "the prediction file (-of) under several ranks is not ported "
-            "(ROADMAP, queue 1: the data-parallel prediction writer)")
     tv.initialize()
     lead = tv.mesh.rank == 0
     ckpts = sorted(glob.glob(cfg.model_path)) if cfg.model_path else [None]
@@ -168,8 +186,7 @@ def inference(cfg: URESNetConfig, io=None, device="cuda") -> dict:
                 acc = upd if acc is None else {k: acc[k] + upd[k]
                                                for k in acc}
                 if cfg.output_file:
-                    io.store_segment(blob["index"], blob,
-                                     res["softmax"].cpu().numpy())
+                    _store_predictions(io, tv, blob, res["softmax"])
                 if it == 0:
                     # fence batch 0 and restart the clock: the reported
                     # rate is the steady state

@@ -9,8 +9,13 @@ by name.
 Eval (`train=False`), as in the reference: every submanifold conv runs with
 its epilogue fused (the stem and each block's conv_b with the occupancy
 mask, conv_a with the following BN folded in), and the decoder
-concatenates the skip before its first block. The caller turns autograd
-off (`torch.no_grad()`).
+concatenates the skip before its first block. With `URESNET_EVAL_PAIR=1`
+in the environment (read at each forward, as the reference reads it at
+trace time) eval hands that block the unmaterialized (upsampled, skip)
+pair instead, as train does, and the block runs raw: bn_a, raw conv_a (one
+conv a half), bn_b, raw conv_b. That saves the concat's
+(B, T, cells, 2C) copies at a decoder level for one launch more. The
+caller turns autograd off (`torch.no_grad()`).
 
 Train (`train=True`): every BN takes batch moments over the active cells
 (recorded, then applied by `norm.commit_batch_moments` after the step),
@@ -31,6 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import Optional
 
 import torch
@@ -131,8 +137,10 @@ def _mask_epilogue(features: int, mask, device):
 
 class SparseResBlockTile(nn.Module):
     """Pre-activation residual block; per-row linear shortcut when the
-    channel count changes. In train mode x may be the decoder's (up, skip)
-    pair, which the shortcut, bn_a and conv_a each take channel-separably."""
+    channel count changes. x may be the decoder's (up, skip) pair (always
+    in train, in eval under URESNET_EVAL_PAIR=1), which the shortcut, bn_a
+    and conv_a each take channel-separably; a pair runs the raw convs in
+    eval too."""
 
     def __init__(self, cfg: URESNetConfig, cin: int, features: int):
         super().__init__()
@@ -159,7 +167,7 @@ class SparseResBlockTile(nn.Module):
             else:
                 shortcut = nin(x, wc).to(dt)
         y = _bn_flat(self.bn_a, x, mask, train)
-        if train:
+        if train or isinstance(x, tuple):
             y = self.conv_a(y, level, t)
             y = _bn_flat(self.bn_b, y, mask, train)
             y = self.conv_b(y, level, t)
@@ -260,14 +268,18 @@ class UResNetSparseTiled(SparseUResNetBase):
     def _dec_stage(self, x, skip, l, level, mask, mask_up, link, t, t_up,
                    train):
         """BN and the transposed stride-2 conv from level l+1, then level
-        l's blocks on (up, skip): a pair in train, a concat in eval."""
+        l's blocks on (up, skip): a pair in train or under
+        URESNET_EVAL_PAIR=1, else a concat."""
         cfg = self.cfg
         y = _bn_flat(getattr(self, f"up{l}_bnact"), x, mask_up, train)
         y = upsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link,
                                 level.occ, t, t_up, cfg.data_dim,
                                 getattr(self, f"up{l}_w"))
         skip = skip.to(y.dtype)
-        y = (y, skip) if train else torch.cat([y, skip], dim=-1)
+        if train or os.environ.get("URESNET_EVAL_PAIR") == "1":
+            y = (y, skip)
+        else:
+            y = torch.cat([y, skip], dim=-1)
         for r in range(cfg.reps):
             y = getattr(self, f"dec{l}_block{r}")(y, level, mask, t, train)
         return y

@@ -17,7 +17,10 @@ rank is a process on one device, and the collectives are written out:
   the loss's weight sum and the metrics' counts (models/losses.py), and
   the gradients (trainval.py). Its differentiable form's backward sums the
   cotangents over the ranks (`torch.distributed.nn`), which is SyncBN's
-  mathematics.
+  mathematics;
+- `gather_rows` hands rank 0 every rank's copy of fixed-shape tensors in
+  one collective: the prediction writer's rows (main_funcs.py), where the
+  reference's one process holds the global batch.
 
 Without a process group (`DataMesh.group is None`) nothing is reduced and
 every number is the one-process number, bit for bit.
@@ -116,6 +119,37 @@ def all_reduce_sum(mesh: Optional[DataMesh], *tensors: torch.Tensor,
         dist.all_reduce(flat, group=mesh.group)
     parts = flat.split([t.numel() for t in tensors])
     return tuple(p.view(t.shape).to(t.dtype) for p, t in zip(parts, tensors))
+
+
+@torch.no_grad()
+def gather_rows(mesh: Optional[DataMesh], *tensors: torch.Tensor):
+    """Every rank's `tensors` on rank 0, in one collective: on rank 0 a
+    tuple holding, for each tensor, the ranks' copies stacked on a new
+    leading axis (rank r's at index r); None on every other rank. Each
+    tensor has the same shape and dtype on every rank, on any device. They
+    travel as the bytes of one buffer, on the mesh's device under NCCL and
+    through the host under gloo, and come back there. Without a process
+    group the tuple holds each tensor as it is, with a leading axis of
+    one."""
+    if mesh is None or mesh.group is None:
+        return tuple(t[None] for t in tensors)
+    nccl = dist.get_backend(mesh.group) == "nccl"
+    dev = mesh.device if nccl else torch.device("cpu")
+    parts = [t.detach().to(dev).contiguous().reshape(-1).view(torch.uint8)
+             for t in tensors]
+    flat = torch.cat(parts)
+    bufs = ([torch.empty_like(flat) for _ in range(mesh.size)]
+            if mesh.rank == 0 else None)
+    dist.gather(flat, bufs, dst=0, group=mesh.group)
+    if mesh.rank != 0:
+        return None
+    sizes = [p.numel() for p in parts]
+    ranks = [buf.split(sizes) for buf in bufs]
+    # each slice copied out first: a view as a wider dtype needs an
+    # aligned offset, which the packing does not give
+    return tuple(torch.stack([r[i].clone().view(t.dtype).view(t.shape)
+                              for r in ranks])
+                 for i, t in enumerate(tensors))
 
 
 @torch.no_grad()
