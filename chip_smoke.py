@@ -51,16 +51,18 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    bf16 noise), the launches of kernels D and E in one step, step time and
    peak memory under "stage_dots" and "none";
 8. drives config 3 and 4 at four configurations whose widths or tile size
-   make the tile conv's shape rule send some convs to the unfused path
-   (`WIDTH_CASES`): `uresnet_filters=12` (widths 12, 36 and 60, which
-   kernels B and C refuse), `width_ramp="geometric"` (256 -> 256),
-   `uresnet_filters=32` (160 -> 160) and `tile_size=8` with
-   `tile_sizes=None` (the decoder's 96 -> 48 and 128 -> 64 concat convs at
-   t=8, in eval): for each, one forward (batch 2) and one training step
-   (batch 1), each held to the plain path at phase 2's and phase 4's
-   bounds, with the exact launches of kernels A-E, the convs the rule
-   sent to the unfused path, three timed forwards and steps and the peak
-   memory of each;
+   kernels B and C's plans once refused (`WIDTH_CASES`):
+   `uresnet_filters=12` (widths 12, 36 and 60: Cout no multiple of 8),
+   `width_ramp="geometric"` (256 -> 256), `uresnet_filters=32` (160 ->
+   160) and `tile_size=8` with `tile_sizes=None` (t=8 at every level: the
+   decoder's 96 -> 48 and 128 -> 64 concat convs): for each, one forward
+   (batch 2) and one training step (batch 1), each held to the plain path
+   at phase 2's and phase 4's bounds, with the exact launches of kernels
+   A-E (37 B a forward, 81 B and 41 C a step, no D or E), every bf16 conv
+   decided fused (`record_rule`), three timed forwards and steps and the
+   peak memory of each; phases 1 and 3 hold B, its d_x and C at each of
+   these convs' shapes (`WIDTH_B`, `WIDTH_DW`, `WIDTH_DX`, `WIDTH_T8`)
+   beside the unfused path's time for the same conv;
 9. drives the port's CLI (`flags.parse_args` on a user's argv, then
    `main_funcs`) on synthetic events in a temporary directory: `train` at
    config 4 for 3 iterations with a checkpoint each (3 checkpoints, a
@@ -176,6 +178,43 @@ EXTEND_SHAPES = (("L0 t=4 C=16", 0, 4, 16, torch.bfloat16),
                  ("L2 t=2 C=48", 2, 2, 48, torch.bfloat16),
                  ("L4 t=2 C=80", 4, 2, 80, torch.bfloat16),
                  ("L0 t=4 C=16 f32", 0, 4, 16, torch.float32))
+
+
+# kernels B and C at the widths of phase 8's configurations, each beside
+# the unfused path (kernel D + cuDNN) that took those convs before:
+# (name, level, t, Cin, Cout) of the forward convs on config 3's maps
+# (phase 1), of the d_W and d_x (of a conv Cin -> Cout) on config 4's
+# (phase 3). uresnet_filters=12 runs widths 12-60, whose Cout is no
+# multiple of 8; the decoder's first conv after the concat takes 2 Cout,
+# and in training runs as two half convs (d_x 12 -> 24 and 36 -> 72 of the
+# concat convs only in these checks). The bottom level (L4) runs 160 ->
+# 160 at uresnet_filters=32 and 256 -> 256 at width_ramp="geometric".
+# WIDTH_T8: tile_size=8's decoder convs after the concat at levels 2 and 3
+# (96 -> 48, 128 -> 64), in eval (training runs them as halves), on a
+# t=8 graph of config 4's events: kernel B and, at the same widths, C.
+WIDTH_B = (("f12 stem L0 t=4 1->12", 0, 4, 1, 12),
+           ("f12 L0 t=4 12->12", 0, 4, 12, 12),
+           ("f12 dec L0 t=4 24->12", 0, 4, 24, 12),
+           ("f12 L2 t=2 36->36", 2, 2, 36, 36),
+           ("f12 dec L2 t=2 72->36", 2, 2, 72, 36),
+           ("f12 L4 t=2 60->60", 4, 2, 60, 60),
+           ("f32 L4 t=2 160->160", 4, 2, 160, 160),
+           ("geo L4 t=2 256->256", 4, 2, 256, 256))
+WIDTH_DW = (("f12 stem L0 t=4 1->12", 0, 4, 1, 12),
+            ("f12 L0 t=4 12->12", 0, 4, 12, 12),
+            ("f12 L2 t=2 36->36", 2, 2, 36, 36),
+            ("f12 L4 t=2 60->60", 4, 2, 60, 60),
+            ("f32 L4 t=2 160->160", 4, 2, 160, 160),
+            ("geo L4 t=2 256->256", 4, 2, 256, 256))
+WIDTH_DX = (("f12 L0 t=4 12->12", 0, 4, 12, 12),
+            ("f12 dec L0 t=4 24->12", 0, 4, 24, 12),
+            ("f12 L2 t=2 36->36", 2, 2, 36, 36),
+            ("f12 dec L2 t=2 72->36", 2, 2, 72, 36),
+            ("f12 L4 t=2 60->60", 4, 2, 60, 60),
+            ("f32 L4 t=2 160->160", 4, 2, 160, 160),
+            ("geo L4 t=2 256->256", 4, 2, 256, 256))
+WIDTH_T8 = (("t8 dec L2 t=8 96->48", 2, 8, 96, 48),
+            ("t8 dec L3 t=8 128->64", 3, 8, 128, 64))
 
 
 def require(cond: bool, msg: str) -> None:
@@ -340,10 +379,35 @@ def halo_bytes(halo) -> int:
                for v in (halo.idx, halo.ok, halo.blive))
 
 
-def check_halo_conv(name, level, t, cin, cout, rng, device):
+def unfused_ms(halo, t, x, w, g=None, wrt=None) -> float:
+    """The same conv on the unfused path, which the card ran before kernels
+    B and C took its widths: kernel D and one cuDNN VALID conv
+    (`_valid_conv`), or, given g, the backward of that toward x (cuDNN's
+    dgrad, then kernel E) or toward w (cuDNN's wgrad), timed alone."""
+    from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import (
+        halo26_extend_op)
+    from uresnet_pytorch_tpu_torch.ops.tile_conv import _valid_conv
+
+    def conv(xx, ww):
+        return _valid_conv(halo26_extend_op(xx, halo.idx, halo.ok, t, 3), ww,
+                           t, 3)
+    if g is None:
+        with torch.no_grad():
+            return time_ms(lambda: conv(x, w))
+    xx = x.detach().requires_grad_(wrt == "x")
+    ww = w.detach().requires_grad_(wrt == "w")
+    out = conv(xx, ww)
+    inp = xx if wrt == "x" else ww
+    return time_ms(lambda: torch.autograd.grad(out, inp, g,
+                                               retain_graph=True))
+
+
+def check_halo_conv(name, level, t, cin, cout, rng, device,
+                    unfused: bool = False):
     """Kernel B vs its plain version on one level's real halo maps, raw and
     with the epilogue. Returns (max_abs_err, kernel ms, plain ms, bound
-    ms, bound by) of the epilogue form."""
+    ms, bound by) of the epilogue form, and with `unfused` the same conv's
+    `unfused_ms`."""
     from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
         halo_conv, halo_conv_plain, kernel_plan)
@@ -388,11 +452,16 @@ def check_halo_conv(name, level, t, cin, cout, rng, device):
     nbytes = (n_live * cells * cin * 2 + w.numel() * 2 + halo_bytes(level.halo)
               + 8 * cout + mask.numel() + B * T * cells * cout * 2)
     bound_ms, by = bound(2 * 27 * cin * cout * n_live * cells, nbytes)
+    slices = -(-cout // cs)
     print(f"halo_conv {name}: kernel bn_act {ms:.3f} ms, raw {raw_ms:.3f} "
           f"ms, plain bn_act {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({by}); {cout // cs} Cout slice(s) of {cs}, chunks of {cw} "
+          f"({by}); {slices} Cout slice(s) of {cs}, chunks of {cw} "
           f"channels")
-    return worst, ms, plain_ms, bound_ms, by
+    if not unfused:
+        return worst, ms, plain_ms, bound_ms, by
+    u_ms = unfused_ms(level.halo, t, x, w)
+    print(f"halo_conv {name}: unfused (D + cuDNN VALID conv) {u_ms:.3f} ms")
+    return worst, ms, plain_ms, bound_ms, by, u_ms
 
 
 def check_gather(name, spec, src_rows, feat, rng, device):
@@ -478,10 +547,11 @@ def check_link(name, link, op, t_c, dim, C, rng, device,
     return err, ms, plain_ms, bound_ms, by, library_ms
 
 
-def check_dw(name, level, t, cin, cout, rng, device):
+def check_dw(name, level, t, cin, cout, rng, device, unfused: bool = False):
     """Kernel C vs its plain version on one level's real halo maps:
     max|err| <= DW_RTOL * max|ref|. Returns (max_abs_err, kernel ms, plain
-    ms, bound ms, bound by)."""
+    ms, bound ms, bound by), and with `unfused` the unfused path's d_W
+    (cuDNN's wgrad) ms."""
     from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import (
         dw_plan, halo_conv_dw, halo_conv_dw_plain)
@@ -517,20 +587,26 @@ def check_dw(name, level, t, cin, cout, rng, device):
     print(f"halo_conv_dw {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, bound {bound_ms:.4f} ms ({by}); plan (Cout slice, tiles a "
           f"chunk, warp groups, M tiles a warp) {plan}")
-    return err, ms, plain_ms, bound_ms, by
+    if not unfused:
+        return err, ms, plain_ms, bound_ms, by
+    w = torch.zeros(27, cin, cout, dtype=torch.bfloat16, device=device)
+    u_ms = unfused_ms(level.halo, t, x, w, g, wrt="w")
+    print(f"halo_conv_dw {name}: unfused d_W (cuDNN wgrad) {u_ms:.3f} ms")
+    return err, ms, plain_ms, bound_ms, by, u_ms
 
 
-def check_dx(name, level, t, c, rng, device):
-    """Kernel B as the conv's d_x: conv(g, flip_weights(w)) against its
-    plain version, to the bf16 bound. Returns (max_abs_err, kernel ms,
-    plain ms, bound ms, bound by)."""
+def check_dx(name, level, t, cin, cout, rng, device, unfused: bool = False):
+    """Kernel B as the d_x of a conv cin -> cout: conv(g, flip_weights(w)),
+    cout -> cin, against its plain version, to the bf16 bound. Returns
+    (max_abs_err, kernel ms, plain ms, bound ms, bound by), and with
+    `unfused` the unfused path's d_x (cuDNN's dgrad, then kernel E) ms."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
         flip_weights, halo_conv, halo_conv_plain)
     B, T = level.keys.shape
     live = level.halo.blive[..., None, None].cpu().numpy()
-    g = rng.standard_normal((B, T, t ** 3, c), dtype=np.float32) * live
-    w = rng.standard_normal((27, c, c), dtype=np.float32) \
-        * np.float32((2.0 / (27 * c)) ** 0.5)
+    g = rng.standard_normal((B, T, t ** 3, cout), dtype=np.float32) * live
+    w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
+        * np.float32((2.0 / (27 * cout)) ** 0.5)
     g, w = (torch.from_numpy(v).to(device, torch.bfloat16) for v in (g, w))
     wf = flip_weights(w).contiguous()
     got = halo_conv(g, wf, level.halo, t, 3).float()
@@ -547,12 +623,18 @@ def check_dx(name, level, t, c, rng, device):
     plain_ms = time_ms(lambda: halo_conv_plain(g, wf, level.halo, t, 3),
                        iters=2)
     n_live = live_rows(level)
-    nbytes = (n_live * t ** 3 * c * 2 + wf.numel() * 2
-              + halo_bytes(level.halo) + B * T * t ** 3 * c * 2)
-    bound_ms, by = bound(2 * 27 * c * c * n_live * t ** 3, nbytes)
+    nbytes = (n_live * t ** 3 * cout * 2 + wf.numel() * 2
+              + halo_bytes(level.halo) + B * T * t ** 3 * cin * 2)
+    bound_ms, by = bound(2 * 27 * cin * cout * n_live * t ** 3, nbytes)
     print(f"halo_conv d_x {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
           f"ms, bound {bound_ms:.4f} ms ({by})")
-    return float(err.max()), ms, plain_ms, bound_ms, by
+    if not unfused:
+        return float(err.max()), ms, plain_ms, bound_ms, by
+    x = torch.zeros(B, T, t ** 3, cin, dtype=torch.bfloat16, device=device)
+    u_ms = unfused_ms(level.halo, t, x, w, g, wrt="x")
+    print(f"halo_conv d_x {name}: unfused d_x (cuDNN dgrad + E) {u_ms:.3f} "
+          f"ms")
+    return float(err.max()), ms, plain_ms, bound_ms, by, u_ms
 
 
 def row_map(halo, t, device):
@@ -888,67 +970,61 @@ def timed_steps(tv, blob, warm: int, timed: int):
     return losses, times, metrics
 
 
-# phase 8: configurations whose widths or tile size make the tile conv's
-# shape rule send some convs to the unfused path, at config 3's and 4's
-# full size: name -> (overrides, kernel B's, D's and A's launches in a
-# forward, kernel B's, C's, D's, E's and A's in a stage_dots step, the
-# (Cin, Cout) convs unfused in the forward and in the step). Kernels B and
-# C refuse Cout 12, 36 and 60 (uresnet_filters=12: widths 12-60), the
-# 256 -> 256 convs at the bottom of the geometric ramp (16-256) and the
-# 160 -> 160 ones at uresnet_filters=32 (32-160); at t=8 (tile_size=8,
-# tile_sizes=None) kernel B refuses the decoder's first convs after the
-# concat at levels 2 and 3 (96 -> 48, 128 -> 64), which in training run
-# as pairs of halves it takes. Of 37 convs a forward, each refused one is
-# a D launch; a step runs 41 (the pairs' halves), 40 d_x and 41 d_W, and
-# recomputes each D but the stem's under stage_dots. Kernel A launches
-# once a link op, at links 1-3 (link 0 is the identity of the 4 -> 2 tile
-# halving): 9 a forward, 21 a step (6 recomputed, 6 backward); at t=8 all
-# four links are real: 12 and 28. tests/test_torch_widths.py holds the
-# same configurations to the reference on the CPU.
+# phase 8: the configurations whose widths or tile size kernels B and C's
+# plans once refused, at config 3's and 4's full size:
+# uresnet_filters=12 (widths 12-60, Cout no multiple of 8),
+# width_ramp="geometric" (16-256: 256 -> 256 at L4), uresnet_filters=32
+# (32-160: 160 -> 160) and tile_size=8 with tile_sizes=None (t=8 at every
+# level: the decoder's 96 -> 48 and 128 -> 64 concat convs in eval). Every
+# bf16 conv takes kernels B and C, as config 3's and 4's: 37 B a forward,
+# 81 B and 41 C a stage_dots step, no D or E. name -> (overrides, kernel
+# A's launches in a forward and in a step): once a link op, at links 1-3
+# (link 0 is the identity of the 4 -> 2 tile halving): 9 and 21 (6
+# recomputed, 6 backward); at t=8 all four links are real: 12 and 28.
+# tests/test_torch_widths.py holds the same configurations to the
+# reference on the CPU.
 WIDTH_CASES = {
-    "filters12": ({"uresnet_filters": 12}, (16, 21, 9), (36, 18, 45, 22, 21),
-                  {(1, 12), (12, 12), (24, 12), (36, 36), (60, 60),
-                   (72, 36)},
-                  {(1, 12), (12, 12), (36, 36), (60, 60)}),
-    "geometric": ({"width_ramp": "geometric"}, (33, 4, 9),
-                  (73, 37, 8, 4, 21), {(256, 256)}, {(256, 256)}),
-    "filters32": ({"uresnet_filters": 32}, (33, 4, 9), (73, 37, 8, 4, 21),
-                  {(160, 160)}, {(160, 160)}),
-    "tile8": ({"tile_size": 8, "tile_sizes": None}, (35, 2, 12),
-              (81, 41, 0, 0, 28), {(96, 48), (128, 64)}, set()),
+    "filters12": ({"uresnet_filters": 12}, 9, 21),
+    "geometric": ({"width_ramp": "geometric"}, 9, 21),
+    "filters32": ({"uresnet_filters": 32}, 9, 21),
+    "tile8": ({"tile_size": 8, "tile_sizes": None}, 12, 28),
 }
+FORWARD_LAUNCHES = {"halo_conv": 37, "halo_conv_dw": 0, "halo26_fwd": 0,
+                    "halo26_bwd": 0}
 
 
 @contextlib.contextmanager
 def record_rule(calls: list):
-    """Appends (Cin, Cout, fused) for every conv the tile conv's shape rule
-    decides while the block runs; the decisions stay the rule's."""
+    """Appends (Cin, Cout) for every conv the tile conv's shape rule
+    decides while the block runs, and raises if it sends a bfloat16 conv
+    on the card to the unfused path: every such conv has a plan."""
     from uresnet_pytorch_tpu_torch.ops import tile_conv
     rule = tile_conv._fused
 
     def record(x, t, dim, Cout, dx=False, dw=False):
         fused = rule(x, t, dim, Cout, dx, dw)
-        calls.append((x.shape[-1], Cout, fused))
+        calls.append((x.shape[-1], Cout))
+        require(fused or x.dtype != torch.bfloat16,
+                f"the rule sent the bf16 conv {x.shape[-1]} -> {Cout} at "
+                f"t={t} (d_x {dx}, d_W {dw}) to the unfused path")
         return fused
     with mock.patch.object(tile_conv, "_fused", record):
         yield
 
 
-def width_run(name, device, counts, reset_counts, require_a,
-              extend_by_shape):
+def width_run(name, device, counts, reset_counts, require_a):
     """Phase 8 for WIDTH_CASES[name]: a forward at config 3's size (batch
     2) and a stage_dots step at config 4's (batch 1), each held to the
     plain path at phase 2's and phase 4's bounds, with the exact launches
-    of kernels A-E, the convs the rule sent to the unfused path, kernels
-    D's and E's ms x launches, three timed forwards and steps, and the
-    peak memory of each. Returns ({path: launches}, {run: D/E ms x
-    launches})."""
+    of kernels A-E, every conv on the fused path (`record_rule`), three
+    timed forwards and steps, and the peak memory of each. Returns {path:
+    launches}."""
     from uresnet_pytorch_tpu_torch.models import construct
     from uresnet_pytorch_tpu_torch.ops.tile_graph import tile_size_at
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
     from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                          load_jax_variables)
-    kw, fwd_want, step_want, eval_unfused, train_unfused = WIDTH_CASES[name]
+    kw, a_fwd, a_step = WIDTH_CASES[name]
     cfg = dataclasses.replace(config3(), **kw)
     blob = event_blob(cfg, 2)
     coords, values, nv = (torch.from_numpy(blob[k]).to(device)
@@ -959,13 +1035,13 @@ def width_run(name, device, counts, reset_counts, require_a,
     print(f"{name}: widths {cfg.n_planes}, tile sizes "
           f"{[tile_size_at(cfg, l) for l in range(len(cfg.n_planes))]}, "
           f"voxels/event {nv.tolist()}")
-    rule, shapes, runs = [], {}, {}
+    rule = []
     with torch.no_grad():
         reset_counts()
-        with record_extend(shapes, "forward"), record_rule(rule):
+        with record_rule(rule):
             logits, diag = model(coords, values, nv)
         torch.cuda.synchronize()
-        fwd, fwd_shapes = counts(), extend_by_shape()
+        fwd = counts()
         torch.cuda.reset_peak_memory_stats()
         times = [timed_call(lambda: model(coords, values, nv))[1]
                  for _ in range(3)]
@@ -979,19 +1055,11 @@ def width_run(name, device, counts, reset_counts, require_a,
         torch.cuda.synchronize()
         require(counts() == before, "the plain-path forward launched a "
                 "kernel")
-        runs[f"{name}_forward"] = extend_per_run(
-            shapes, device, f"{name} forward", fwd_shapes)
-    unfused = {(ci, co) for ci, co, f in rule if not f}
-    print(f"{name}: launches in one forward (batch 2): {fwd}; convs on the "
-          f"unfused path {sorted(unfused)} of {len(rule)}")
-    require(unfused == eval_unfused, f"{name}: the rule sent "
-            f"{sorted(unfused)} to the unfused path in the forward, expected "
-            f"{sorted(eval_unfused)}")
-    require((fwd["halo_conv"], fwd["halo26_fwd"]) == fwd_want[:2]
-            and fwd["halo_conv_dw"] == fwd["halo26_bwd"] == 0,
-            f"{name}: expected {fwd_want[0]} fused (B) and {fwd_want[1]} "
-            f"unfused (D) convs in the forward, and no C or E")
-    require_a(fwd_want[2], fwd, f"the {name} forward")
+    print(f"{name}: launches in one forward (batch 2): {fwd}; {len(rule)} "
+          f"convs, all fused")
+    require(all(fwd[k] == n for k, n in FORWARD_LAUNCHES.items()),
+            f"{name}: expected {FORWARD_LAUNCHES} in the forward")
+    require_a(a_fwd, fwd, f"the {name} forward")
     valid = torch.arange(cfg.max_voxels, device=device)[None] < nv[:, None]
     require(int(diag["overflow"]) == 0 and bool(torch.isfinite(logits).all())
             and bool((logits[~valid] == 0).all()),
@@ -1008,41 +1076,31 @@ def width_run(name, device, counts, reset_counts, require_a,
     variables = init_params(cfg4, torch.Generator().manual_seed(cfg4.seed))
     blob1 = event_blob(cfg4, 1)
     reset_counts()
-    shapes = {}
-    with record_extend(shapes, "step"):   # the kernel step's launches only
+    rule = []
+    with record_rule(rule):   # the kernel step's decisions
         compare_step(cfg4, variables, blob1, counts,
                      f"{name} kernel vs plain")
     step = counts()
-    runs[f"{name}_step"] = extend_per_run(shapes, device, f"{name} step",
-                                          extend_by_shape())
     print(f"{name}: launches in one stage_dots step (batch 1): {step}")
-    require((step["halo_conv"], step["halo_conv_dw"], step["halo26_fwd"],
-             step["halo26_bwd"]) == step_want[:4],
-            f"{name}: expected B, C, D, E launches {step_want[:4]} in the "
-            "step")
-    require_a(step_want[4], step, f"the {name} step")
+    require(all(step[k] == n for k, n in STEP_LAUNCHES.items()
+                if k != "windowed_gather"),
+            f"{name}: expected B, C, D, E launches as {STEP_LAUNCHES} in "
+            "the step")
+    require_a(a_step, step, f"the {name} step")
     tv = TrainVal(cfg4)
     tv.initialize(variables)
-    rule = []
-    with record_rule(rule):
-        timed_steps(tv, blob1, 1, 0)
+    timed_steps(tv, blob1, 1, 0)
     torch.cuda.reset_peak_memory_stats()
     losses, times, metrics = timed_steps(tv, blob1, 0, 3)
     peak_step = torch.cuda.max_memory_allocated()
-    unfused = {(ci, co) for ci, co, f in rule if not f}
-    require(unfused == train_unfused, f"{name}: the rule sent "
-            f"{sorted(unfused)} to the unfused path in the step, expected "
-            f"{sorted(train_unfused)}")
     require(all(np.isfinite(losses)) and int(metrics["overflow"]) == 0,
             f"{name}: a non-finite loss or a graph overflow in training")
     step_ms = sorted(times)[1]
-    print(f"{name}: convs on the unfused path in the step {sorted(unfused)};"
-          f" train step (batch 1), 3 runs after 1: "
+    print(f"{name}: train step (batch 1), 3 runs after 1: "
           f"{', '.join(f'{t:.1f}' for t in times)} ms; median {step_ms:.1f} "
           f"ms; peak memory {peak_step / 2**30:.2f} GiB")
     del tv
-    return ({f"{name}_forward": fwd, f"{name}_training_step": step}, runs)
-
+    return {f"{name}_forward": fwd, f"{name}_training_step": step}
 
 
 # kernel A's device function, and that of the one-warp-per-row kernel A
@@ -2363,6 +2421,9 @@ def main() -> int:
     print("halo_conv per shape (bn_act ms, plain ms, bound ms): " + "; ".join(
         f"{k} {r[1]:.3f} / {r[2]:.3f} / {r[3]:.4f}"
         for k, r in halo_res.items()))
+    width_b = {name: check_halo_conv(name, lv[l], t, ci, co, rng, device,
+                                     unfused=True)
+               for name, l, t, ci, co in WIDTH_B}
     # kernel A: the single-spec gather (one octant) at link 1, levels 1 ->
     # 2 (link 0 is the identity of the 4 -> 2 tile halving); both link
     # directions at links 1-3 at the widths the path moves (the graph
@@ -2510,11 +2571,24 @@ def main() -> int:
                 for name, level, t, ci, co in (
                     ("L3 t=2 128->128", lv[3], 2, 128, 128),
                     ("tile_size=8 L0 t=8 16->16", lv8[0], 8, 16, 16))}
+    width_b.update({name: check_halo_conv(name, lv8[l], t, ci, co, rng,
+                                          device, unfused=True)
+                    for name, l, t, ci, co in WIDTH_T8})
+    width_dw8 = {name: check_dw(name, lv8[l], t, ci, co, rng, device,
+                                unfused=True)
+                 for name, l, t, ci, co in WIDTH_T8}
     del lv8
     dx_res = {"d_x L0 t=4 16->16": check_dx("L0 t=4 16->16", lv[0], 4, 16,
-                                            rng, device),
+                                            16, rng, device),
               "d_x L4 t=2 80->80": check_dx("L4 t=2 80->80", lv[4], 2, 80,
-                                            rng, device)}
+                                            80, rng, device)}
+    width_dw = {name: check_dw(name, lv[l], t, ci, co, rng, device,
+                               unfused=True)
+                for name, l, t, ci, co in WIDTH_DW}
+    width_dw.update(width_dw8)
+    width_dx = {f"d_x {name}": check_dx(name, lv[l], t, ci, co, rng, device,
+                                        unfused=True)
+                for name, l, t, ci, co in WIDTH_DX}
     del graph, lv
 
     # -- phase 4: config-4 training through TrainVal -----------------------
@@ -2817,10 +2891,8 @@ def main() -> int:
     print(f"phase 8 at {time.perf_counter() - t_start:.1f} s")
     width_launches = {}
     for name in WIDTH_CASES:
-        got, runs = width_run(name, device, counts, reset_counts, require_a,
-                              extend_by_shape)
-        width_launches.update(got)
-        ext_runs.update(runs)
+        width_launches.update(width_run(name, device, counts, reset_counts,
+                                        require_a))
         torch.cuda.empty_cache()
 
     # -- phase 9: the CLI: train, restore, inference, iotest ---------------
@@ -2884,6 +2956,11 @@ def main() -> int:
         return {k: {"max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
                     "bound_ms": r[3]} for k, r in res.items()}
 
+    def width_checks(res):
+        return {k: {"max_abs_err": r[0], "ms": r[1], "plain_ms": r[2],
+                    "bound_ms": r[3], "bound_by": r[4], "unfused_ms": r[5]}
+                for k, r in res.items()}
+
     dw0 = dw_res["L0 t=4 16->16"]
     a0 = link_res["link1 assemble C=48"]
     b0 = halo_res["L0 t=4 16->16"]
@@ -2899,7 +2976,9 @@ def main() -> int:
          "launches_by_path": by_path("halo_conv"),
          "max_abs_err": max(r[0] for r in (*halo_res.values(),
                                            *dx_res.values(),
-                                           *b_branch.values())),
+                                           *b_branch.values(),
+                                           *width_b.values(),
+                                           *width_dx.values())),
          "ms": b0[1], "plain_ms": b0[2], "bound_ms": b0[3],
          "bound_by": b0[4], "library_ms": None,
          "ms_by_shape": {k: r[1] for k, r in (*halo_res.items(),
@@ -2907,7 +2986,8 @@ def main() -> int:
          "launches_per_eval_forward": {
              mode: pair_launches[f"eval_{mode}_b16_3_forwards"]["halo_conv"]
              // 3 for mode in ("concat", "pair")},
-         "branch_checks": branch_checks(b_branch)},
+         "branch_checks": branch_checks(b_branch),
+         "width_checks": width_checks({**width_b, **width_dx})},
         {"name": "halo_conv_dw", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/halo_conv_dw.cu",
          "replaces": "uresnet_pytorch_tpu/ops/pallas/halo_conv.py:1175",
@@ -2916,7 +2996,8 @@ def main() -> int:
          "launches": train_launches["halo_conv_dw"],
          "launches_by_path": by_path("halo_conv_dw"),
          "max_abs_err": max(r[0] for r in (*dw_res.values(),
-                                           *dw_branch.values())),
+                                           *dw_branch.values(),
+                                           *width_dw.values())),
          "ms": dw0[1], "plain_ms": dw0[2], "bound_ms": dw0[3],
          "bound_by": dw0[4], "library_ms": None,
          "ms_by_shape": {k: r[1] for k, r in dw_res.items()},
@@ -2926,7 +3007,8 @@ def main() -> int:
                              "launches": n}
                       for name, n in dw_per_step.items()},
          "ms_per_step": dw_step_ms,
-         "branch_checks": branch_checks(dw_branch)},
+         "branch_checks": branch_checks(dw_branch),
+         "width_checks": width_checks(width_dw)},
         {"name": "windowed_gather", "route": "cuda",
          "source": "uresnet_pytorch_tpu_torch/csrc/windowed_gather.cu",
          "replaces":

@@ -21,17 +21,20 @@ from uresnet_pytorch_tpu.ops.halo import halo26_extend_xla
 from uresnet_pytorch_tpu.ops.pallas.halo_conv import (
     fused_halo_conv_bn_act, halo_conv_fwd, toeplitz_weights)
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
-from uresnet_pytorch_tpu_torch.ops.halo import build_halo26, halo26_extend
+from uresnet_pytorch_tpu_torch.ops.halo import (body_cells, build_halo26,
+                                                halo26_extend)
 from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _DN = ("NDHWC", "DHWIO", "NDHWC")
 ALPHA = 0.1
 
 
-def _case(t, Cin, Cout, live, seed, B=2, G=8, T=64):
+def _case(t, Cin, Cout, live, seed, B=2, G=8, T=None):
     """Sorted keys with `live` tiles per event (rows past it are dead),
     x zero on dead rows and a mask inside the live occupancy: the
-    production invariants the liveness gate relies on."""
+    production invariants the liveness gate relies on. T tiles per event:
+    64, or 8 of t=8's 512 cells."""
+    T = T or (64 if t < 8 else 8)
     rng = np.random.default_rng(seed)
     keys = np.stack([np.asarray(_random_level(rng, G, 3, T, live)[0])
                      for _ in range(B)])
@@ -91,6 +94,15 @@ CASES = [  # t, Cin, Cout, live tiles of 64
     pytest.param(2, 12, 12, 40, id="v1-t2-c12"),
     pytest.param(4, 1, 8, 40, id="stem-cin1"),
 ]
+# the width configurations' shapes (uresnet_filters=12's Cout 60, no
+# multiple of 8; width_ramp="geometric"'s 256 -> 256; tile_size=8's
+# decoder conv after the concat at level 2), held to the reference's
+# Pallas kernels in bf16
+WIDE_CASES = [
+    pytest.param(2, 60, 60, 40, id="v1-t2-c60"),
+    pytest.param(2, 256, 256, 40, id="v1-t2-c256"),
+    pytest.param(8, 96, 48, 6, id="t8-c96-48"),
+]
 
 
 @pytest.mark.parametrize("t,Cin,Cout,live", CASES)
@@ -105,7 +117,7 @@ def test_plain_f32_matches_xla_oracle(t, Cin, Cout, live):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize("t,Cin,Cout,live", CASES)
+@pytest.mark.parametrize("t,Cin,Cout,live", CASES + WIDE_CASES)
 def test_plain_bf16_matches_pallas_interpret(t, Cin, Cout, live):
     keys, x, w, a, b, mask = _case(t, Cin, Cout, live, seed=Cin + t)
     jspec, spec = _specs(keys)
@@ -115,11 +127,12 @@ def test_plain_bf16_matches_pallas_interpret(t, Cin, Cout, live):
                                    jnp.asarray(mask), ALPHA, jspec, t, 3,
                                    interpret=True)
     if fused is None:
-        # off the v2 layout the reference declines its fused kernel and
-        # runs halo_conv_fwd + the epilogue in XLA: hold the raw conv to
-        # that kernel too (each interpret-mode call costs seconds, so the
-        # v2 case checks the fused kernel only)
-        assert t == 2 or Cin < 8
+        # off the v2 layout (t=2, t=8, the stem's Cin < 8) the reference
+        # declines its fused kernel and runs halo_conv_fwd + the epilogue
+        # in XLA: hold the raw conv to that kernel too (each
+        # interpret-mode call costs seconds, so the v2 case checks the
+        # fused kernel only)
+        assert t in (2, 8) or Cin < 8
         raw = halo_conv_fwd(xb, toeplitz_weights(wb, t, 3, jnp.bfloat16),
                             jspec, t, 3, interpret=True)
         raw = np.asarray(raw.astype(jnp.float32))
@@ -204,45 +217,68 @@ def test_tiled_conv_dispatch_matches_reference(epilogue):
 def _im2col(x, spec, t, kp):
     """(B, T, cells, kp): each cell's 27 neighbor rows from the plain
     extend, in the kernel's depth order (offset-major, channels padded to
-    16; packed, offset-major over the true channels, for Cin < 16)."""
+    16; packed, offset-major over the true channels, for Cin < 16), read
+    as the kernel reads them: from its group's staged ext rows
+    (`hc.groups`: whole tiles, or one 64-cell slab of a t=8 tile, staged
+    from ext cell sub * zoff on), which must hold every row the stencil
+    of each of the group's cells reads."""
     B, T, cells, Cin = x.shape
-    ext = halo26_extend(x, spec, t, 3).reshape(B, T, *(t + 2,) * 3, Cin)
+    E = t + 2
+    grp = hc.groups(t, 3)
+    ext = halo26_extend(x, spec, t, 3)
+    first = torch.arange(cells) // (cells // grp.subs) * grp.zoff
+    body = torch.as_tensor(body_cells(t, 3))
     cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
     cols = []
-    for d0 in range(3):
-        for d1 in range(3):
-            for d2 in range(3):
-                v = ext[:, :, d0:d0 + t, d1:d1 + t, d2:d2 + t]
-                cols.append(torch.nn.functional.pad(
-                    v.reshape(B, T, cells, Cin), (0, cpad - Cin)))
+    for k in range(27):
+        d0, d1, d2 = k // 9, k // 3 % 3, k % 3
+        row = body - first + (d0 - 1) * E * E + (d1 - 1) * E + (d2 - 1)
+        assert int(row.min()) >= 0 and int(row.max()) < grp.gcells
+        cols.append(torch.nn.functional.pad(ext[:, :, first + row],
+                                            (0, cpad - Cin)))
     a = torch.cat(cols, -1)
     return torch.nn.functional.pad(a, (0, kp - a.shape[-1]))
 
 
-@pytest.mark.parametrize("t,Cin,Cout", [(4, 1, 128), (4, 12, 40),
-                                        (4, 16, 128), (2, 24, 32),
-                                        (2, 128, 64)])
-def test_kernel_weights_rebuild_the_conv(t, Cin, Cout):
+@pytest.mark.parametrize("t,Cin,Cout,plan", [
+    pytest.param(4, 1, 128, (128, 1), id="stem-128"),
+    pytest.param(4, 12, 40, (40, 12), id="packed-12"),
+    pytest.param(4, 16, 128, (128, 16), id="t4-16-128"),
+    pytest.param(2, 24, 32, (32, 32), id="t2-24-32"),
+    pytest.param(2, 128, 64, (16, 32), id="dec-L3-slices-chunks"),
+    pytest.param(4, 12, 12, (16, 12), id="cout12-pad16"),
+    pytest.param(2, 36, 36, (40, 48), id="cout36-pad40-cin-pad48"),
+    pytest.param(2, 60, 60, (32, 64), id="cout60-two-slices"),
+    pytest.param(2, 72, 36, (40, 16), id="cout36-chunks"),
+    pytest.param(2, 160, 160, (16, 32), id="cin160-ten-slices"),
+    pytest.param(2, 256, 256, (8, 32), id="cin256-32-slices"),
+    pytest.param(8, 16, 16, (16, 16), id="t8-slabs"),
+    pytest.param(8, 96, 48, (24, 96), id="t8-slabs-96-48"),
+    pytest.param(8, 128, 64, (16, 128), id="t8-slabs-128-64"),
+])
+def test_kernel_weights_rebuild_the_conv(t, Cin, Cout, plan):
     """The kernel's GEMM, rebuilt in torch from `kernel_weights`: the plain
-    extend's im2col in the kernel's depth order times the (Cout, kp)
-    weights, one block's slice of output channels at a time and, within
-    it, one staged chunk of channels after another (`kernel_plan`), equals
-    `halo_conv_plain` in f32. Holds the packing's index arithmetic where no
-    card can run the kernel; 128 -> 64 at t=2 splits Cout across blocks
-    and Cin into chunks."""
-    keys, x, w, *_ = _case(t, Cin, Cout, 40, seed=Cin)
+    extend's im2col in the kernel's depth order times the (round_up(Cout,
+    8), kp) weights, one block's slice of output channels at a time and,
+    within it, one staged chunk of channels after another (`kernel_plan`),
+    the pad's columns dropped, equals `halo_conv_plain` in f32. Holds the
+    packing's and the groups' index arithmetic where no card can run the
+    kernel."""
+    keys, x, w, *_ = _case(t, Cin, Cout, 40 if t < 8 else 6, seed=Cin)
     _, spec = _specs(keys)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     kw = hc.kernel_weights(wt)
-    cs, cw = hc.kernel_plan(t, 3, Cin, Cout)
-    assert Cout % cs == 0 and (cs < Cout) == (Cin == 128)
+    coutp = -(-Cout // 8) * 8
+    assert kw.shape[0] == coutp and not kw[Cout:].any()
+    assert hc.kernel_plan(t, 3, Cin, Cout) == plan
+    cs, cw = plan
     a = _im2col(xt, spec, t, kw.shape[1])
     cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
     chunk = torch.arange(kw.shape[1]) % cpad // cw   # depth kk's chunk
     assert int(chunk.max()) + 1 == cpad // cw
     y = torch.cat([sum(a[..., chunk == c] @ kw[n:n + cs, chunk == c].t()
                        for c in range(cpad // cw))
-                   for n in range(0, Cout, cs)], -1)
+                   for n in range(0, coutp, cs)], -1)[..., :Cout]
     y = y * spec.blive[:, :, None, None]
     ref = hc.halo_conv_plain(xt, wt, spec, t, 3).numpy()
     # f32 sums of up to 27 x 128 terms in two orders: 1e-5 of the scale

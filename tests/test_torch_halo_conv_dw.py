@@ -148,9 +148,12 @@ def test_input_without_grad_skips_the_dx_conv():
 
 
 def test_dw_wrapper_refuses_what_the_kernel_cannot_take():
-    """The kernel's limits, from `dw_plan`: Cout a multiple of 8 up to 128
-    and a plan (whole tiles in 16-cell depth steps). A tensor off the CPU
-    goes to the kernel, which raises on them; nothing falls back."""
+    """The kernel's limits, from `dw_plan`: every width has a plan (Cout
+    12, 136 and 256 pad to a multiple of 8 and split into slices), and
+    the geometry refuses a tile that is no whole number of 16-cell depth
+    steps (27 cells at t=3) and a t=16 tile, whose 5832 extended cells
+    fit no buffer. A tensor off the CPU goes to the kernel, which raises
+    on them; nothing falls back."""
     keys, x, g, _ = _dw_case(4, 8, 8, seed=2)
     _, spec = _specs(keys)
     xt, gt = torch.from_numpy(x), torch.from_numpy(g)
@@ -158,12 +161,17 @@ def test_dw_wrapper_refuses_what_the_kernel_cannot_take():
         hcdw._check(xt, gt, spec, 4, 3)
     card = Halo26Spec(*(v.as_subclass(_OnCard) for v in spec[:3]), None)
     x16 = xt.to(torch.bfloat16).as_subclass(_OnCard)
-    for cout in (12, 136):
+    for cout in (12, 136, 256):
+        assert hcdw.dw_plan(4, 3, 8, cout) is not None
         g16 = torch.zeros(x.shape[:3] + (cout,),
                           dtype=torch.bfloat16).as_subclass(_OnCard)
-        with pytest.raises(ValueError, match="multiple of 8 up to 128"):
-            hcdw._check(x16, g16, card, 4, 3)
+        hcdw._check(x16, g16, card, 4, 3)
+    x27 = torch.zeros(x.shape[:2] + (27, 8),
+                      dtype=torch.bfloat16).as_subclass(_OnCard)
+    with pytest.raises(ValueError, match="no plan for t=3"):
+        hcdw._check(x27, x27, card, 3, 3)
     assert hcdw.dw_plan(3, 3, 8, 8) is None                  # 27 cells
+    assert hcdw.dw_plan(16, 3, 8, 8) is None                 # 5832 cells
     assert hcdw.dw_plan(4, 3, 1, 128) is not None
     assert hcdw.dw_plan(8, 3, 128, 128) is not None
     hcdw._check(x16, gt.to(torch.bfloat16).as_subclass(_OnCard), card, 4, 3)
@@ -226,6 +234,11 @@ def _dw_by_plan(x, g, spec, t, plan):
     pytest.param(2, 80, 80, (80, 32, 9, 3), id="L4-five-Cin-slices"),
     pytest.param(4, 12, 16, (16, 4, 9, 3), id="packed-12-idle-tiles"),
     pytest.param(2, 128, 128, (64, 32, 9, 3), id="two-Cout-slices"),
+    pytest.param(4, 12, 12, (16, 4, 9, 3), id="cout12-pad16"),
+    pytest.param(2, 36, 36, (40, 32, 9, 3), id="cout36-pad40"),
+    pytest.param(2, 60, 60, (64, 32, 9, 3), id="cout60-pad64"),
+    pytest.param(2, 160, 160, (80, 32, 9, 3), id="cout160-two-slices"),
+    pytest.param(2, 256, 256, (64, 32, 9, 3), id="cout256-four-slices"),
 ])
 def test_dw_plan_rebuilds_the_gradient(t, Cin, Cout, plan):
     """The counterpart of test_kernel_weights_rebuild_the_conv: d_W

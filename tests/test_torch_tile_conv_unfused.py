@@ -6,11 +6,11 @@ lax.conv). f32 outputs agree to rtol 1e-5, gradients (through kernel E's
 plain version) to `jax.vjp` at 1e-4. Also pins the auto rule: on the card
 float32 takes the unfused path and bfloat16 kernel B, by patching the
 wrappers (a CPU tensor that reports a CUDA device); and the shape rule:
-each conv of the model takes the fused path only where kernels B and C
-take its widths, decided as on the card for bfloat16, with a
-uresnet_filters=12 forward and train step through it against the
-reference's f32 XLA path at the bounds of tests/test_torch_model.py and
-tests/test_torch_train.py."""
+each conv of the model takes the fused path where kernels B and C plan
+its widths, which is every bfloat16 conv of every configuration, decided
+as on the card, with a uresnet_filters=12 forward and train step through
+it against the reference's f32 XLA path at the bounds of
+tests/test_torch_model.py and tests/test_torch_train.py."""
 
 from unittest import mock
 
@@ -163,15 +163,11 @@ def _rule_cfg(**kw):
 # in eval and in training); every other conv stays fused
 RULE_CASES = [
     pytest.param({}, set(), set(), id="config3-4-widths"),
-    pytest.param({"uresnet_filters": 12},
-                 {(1, 12), (12, 12), (36, 36), (60, 60), (72, 36), (24, 12)},
-                 {(1, 12), (12, 12), (36, 36), (60, 60)}, id="filters12"),
-    pytest.param({"width_ramp": "geometric"}, {(256, 256)}, {(256, 256)},
-                 id="geometric"),
-    pytest.param({"uresnet_filters": 32}, {(160, 160)}, {(160, 160)},
-                 id="filters32"),
-    pytest.param({"tile_size": 8, "tile_sizes": None},
-                 {(96, 48), (128, 64)}, set(), id="tile8"),
+    pytest.param({"uresnet_filters": 12}, set(), set(), id="filters12"),
+    pytest.param({"width_ramp": "geometric"}, set(), set(), id="geometric"),
+    pytest.param({"uresnet_filters": 32}, set(), set(), id="filters32"),
+    pytest.param({"tile_size": 8, "tile_sizes": None}, set(), set(),
+                 id="tile8"),
 ]
 
 
@@ -181,9 +177,10 @@ def test_shape_rule_picks_the_path_per_conv(monkeypatch, kw, eval_unfused,
     """Every conv of one eval forward and one training forward/backward of
     the model, decided as on the card for bfloat16: the fused path exactly
     where kernel B takes the conv and, in training, kernel C its d_W and
-    kernel B its d_x (the stem needs none), else the unfused one. The
-    benchmark configs (m=16, linear widths, tiles (4,2,2,2,2)) stay fused
-    throughout; the ROADMAP's failing widths go unfused."""
+    kernel B its d_x (the stem needs none), else the unfused one. Every
+    configuration stays fused throughout: the benchmark configs (m=16,
+    linear widths, tiles (4,2,2,2,2)) and the widths and tile size that
+    once went unfused."""
     from tests.test_torch_model import _events
     from uresnet_pytorch_tpu_torch.models import construct
     cfg = _rule_cfg(**kw)
@@ -208,26 +205,28 @@ def test_shape_rule_picks_the_path_per_conv(monkeypatch, kw, eval_unfused,
         assert got == want, sorted(got)
 
 
-@pytest.mark.parametrize("cin,cout,dx,dw,refuse_dw,use_fused,fused", [
-    (1, 16, False, True, False, None, True),     # the stem: no d_x
-    (1, 16, True, True, False, None, False),     # its d_x (16 -> 1) refused
-    (16, 16, True, True, True, None, False),     # kernel C refusing d_W
-    (16, 16, False, False, True, None, True),    # ... asked for no d_W
-    (16, 12, False, False, False, True, True),   # forced: the wrapper raises
-    (16, 16, False, False, False, False, False),
+@pytest.mark.parametrize("t,cin,cout,dx,dw,refuse_dw,use_fused,fused", [
+    (4, 1, 16, False, True, False, None, True),     # the stem: no d_x
+    (4, 1, 16, True, True, False, None, True),      # its d_x (16 -> 1)
+    (4, 16, 16, True, True, True, None, False),     # kernel C refusing d_W
+    (4, 16, 16, False, False, True, None, True),    # ... asked for no d_W
+    (16, 16, 12, False, False, False, True, True),  # forced: the wrapper raises
+    (4, 16, 16, False, False, False, False, False),
+    (16, 16, 16, False, False, False, None, False),  # t=16: no plan
 ])
-def test_rule_asks_the_gradients_kernels(monkeypatch, cin, cout, dx, dw,
+def test_rule_asks_the_gradients_kernels(monkeypatch, t, cin, cout, dx, dw,
                                          refuse_dw, use_fused, fused):
     """`_fused` on the card: kernel B's plan of the flipped shape where
     x needs a gradient, kernel C's where w does; `USE_FUSED` overrides the
-    rule both ways."""
+    rule both ways. Every width has a plan (Cout 1 pads to 8); what remains
+    refused is geometry: a t=16 tile's 5832 extended cells."""
     monkeypatch.setattr(ttc, "USE_FUSED", use_fused)
     if refuse_dw:
         monkeypatch.setattr(ttc, "dw_plan", lambda *a: None)
     x = torch.empty(0, cin, dtype=torch.bfloat16).as_subclass(_OnCard)
-    assert ttc._fused(x, 4, 3, cout, dx=dx, dw=dw) is fused
+    assert ttc._fused(x, t, 3, cout, dx=dx, dw=dw) is fused
     if use_fused is None:     # float32 on the card: never fused
-        assert not ttc._fused(x.float(), 4, 3, cout, dx=dx, dw=dw)
+        assert not ttc._fused(x.float(), t, 3, cout, dx=dx, dw=dw)
 
 
 @pytest.fixture(scope="module")
@@ -255,14 +254,15 @@ def filters12_case():
 
 def test_filters12_forward_through_the_rule(filters12_case, monkeypatch):
     """One forward at uresnet_filters=12 with every conv on the path the
-    card would take (Cout 12 and 36 unfused, 24 fused), against the
-    reference's f32 logits at the bound of tests/test_torch_model.py."""
+    card would take (every width fused: Cout 12 and 36 pad to 16 and 40),
+    against the reference's f32 logits at the bound of
+    tests/test_torch_model.py."""
     from tests.test_torch_model import _port
     tcfg, variables, args, ref, _, _ = filters12_case
     calls = _card_rule(monkeypatch)
     out = _port(tcfg, variables, args)
-    assert {co for *_, co, fused in calls if not fused} == {12, 36}
-    assert {co for *_, co, fused in calls if fused} == {24}
+    assert all(fused for *_, fused in calls)
+    assert {co for *_, co, fused in calls} == {12, 24, 36}
     np.testing.assert_allclose(out, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -275,8 +275,8 @@ def test_filters12_train_step_through_the_rule(filters12_case, monkeypatch):
     calls = _card_rule(monkeypatch)
     loss, grads, stats = _port_step("float32", variables, blob,
                                     uresnet_filters=12)
-    assert {co for *_, co, fused in calls if not fused} == {12, 36}
-    assert {co for *_, co, fused in calls if fused} == {24}
+    assert all(fused for *_, fused in calls)
+    assert {co for *_, co, fused in calls} == {12, 24, 36}
     np.testing.assert_allclose(loss, ref_loss, rtol=1e-5)
     assert sorted(grads) == sorted(ref_grads)
     for name, ref in ref_grads.items():

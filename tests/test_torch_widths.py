@@ -6,11 +6,10 @@ shape rule mixes paths for, whole, against the reference, on the CPU:
 
 Every conv takes the path the card would take for bfloat16
 (tests/test_torch_tile_conv_unfused.py's `_card_rule`): kernels B and C's
-plain versions where they take the shape, the halo extend (kernels D and
-E's plain versions) and a VALID conv where they do not, which is (256, 256)
-at the bottom of the geometric ramp, (160, 160) at filters 32, and, in
-eval at t=8, the decoder's first convs after the concat, (96, 48) and
-(128, 64). On that path, from one variables tree (BN moments and affines
+plain versions, since they plan every conv of these configurations (the
+256 -> 256 convs at the bottom of the geometric ramp, the 160 -> 160
+ones at filters 32 and, at t=8, the decoder's 96 -> 48 and 128 -> 64
+concat convs in eval among them). On that path, from one variables tree (BN moments and affines
 randomized): the f32 eval logits against the reference's at
 tests/test_torch_model.py's bound (rtol = atol = 1e-4), and one f32 train
 step's loss, gradients and new moments against the reference's at
@@ -36,12 +35,11 @@ _BASE = dict(TRAIN_KW, uresnet_filters=16, uresnet_num_strides=5,
              tile_sizes=(4, 2, 2, 2, 2), batch_size=1)
 
 # (overrides, the (Cin, Cout) convs the card sends to the unfused path in
-# eval and in the train step)
+# eval and in the train step: none)
 WIDTHS = {
-    "geometric": ({"width_ramp": "geometric"}, {(256, 256)}, {(256, 256)}),
-    "filters32": ({"uresnet_filters": 32}, {(160, 160)}, {(160, 160)}),
-    "tile8": ({"tile_size": 8, "tile_sizes": None}, {(96, 48), (128, 64)},
-              set()),
+    "geometric": ({"width_ramp": "geometric"}, set(), set()),
+    "filters32": ({"uresnet_filters": 32}, set(), set()),
+    "tile8": ({"tile_size": 8, "tile_sizes": None}, set(), set()),
 }
 
 

@@ -13,45 +13,56 @@
 // through the halo maps idx/ok, so one kernel serves every (t, C), Cin = 1
 // included.
 //
-// What bounds it on an H100: per group of 64 output rows (one t=4 tile, or
-// eight t=2 tiles) the conv is an implicit GEMM, rows x (K = 3^dim offsets
-// x Cin) x Cout, whose A operand is the group's (t+2)^dim extended block at
-// each offset's shifted rows. The card's bound is the bytes of x and of the
-// output (0.25 ms at config-3 L0). A kernel pays on top for staging
-// (indexed loads of neighbor rows; at t=2 the extended block is 8x the
-// output rows), for the MMA loop's latency, and for weights. The earlier
-// design ran one short block per 64 rows, each staging, then multiplying,
-// then storing in series, with four scalar loads per A fragment and every
-// warp re-reading the whole 27 x Cout x Cin stack (up to 442 KB) from
-// L1/L2; its MMA loop took 70-85% of its time, 14-56x over the bound.
+// What bounds it on an H100: per group of 64 output rows (one t=4 tile,
+// eight t=2 tiles, or one 64-cell slab of a t=8 tile) the conv is an
+// implicit GEMM, rows x (K = 3^dim offsets x Cin) x Cout, whose A operand
+// is the group's extended rows at each offset's shift. The card's bound is
+// the bytes of x and of the output (0.25 ms at config-3 L0). A kernel pays
+// on top for staging (indexed loads of neighbor rows; at t=2 the extended
+// block is 8x the output rows), for the MMA loop's latency, and for
+// weights. The earlier design ran one short block per 64 rows, each
+// staging, then multiplying, then storing in series, with four scalar
+// loads per A fragment and every warp re-reading the whole 27 x Cout x Cin
+// stack (up to 442 KB) from L1/L2; its MMA loop took 70-85% of its time,
+// 14-56x over the bound.
 //
 // Design:
 // - Weights resident in shared memory. The weights come as the GEMM's B
-//   operand, (Cout, kp) with depth kp = K x round_up(Cin, 16) (offset-major,
-//   channel-minor) or, for Cin < 16, kp = round_up(K x Cin, 16): the
-//   offsets packed into the MMA depth, so the stem's 27 offsets of one
-//   channel are two 16-deep MMA steps, not 27. A block copies its slice of
-//   Cout rows once; A and B fragments come by ldmatrix (rows padded by 16
-//   bytes: conflict-free), one depth step ahead of the MMAs, which are
-//   mma.sync m16n8k16 (bf16 in, f32 accumulate).
+//   operand, (Cout padded to 8, kp) with depth kp = K x round_up(Cin, 16)
+//   (offset-major, channel-minor) or, for Cin < 16, kp = round_up(K x
+//   Cin, 16): the offsets packed into the MMA depth, so the stem's 27
+//   offsets of one channel are two 16-deep MMA steps, not 27. A block
+//   copies its slice of Cout rows once; A and B fragments come by ldmatrix
+//   (rows padded by 16 bytes: conflict-free), one depth step ahead of the
+//   MMAs, which are mma.sync m16n8k16 (bf16 in, f32 accumulate). Cout not
+//   a multiple of 8 runs on zero weight rows up to the next multiple (the
+//   pad's affine is the identity) and stores only the real columns.
+// - Every group is 64 rows, one 16-row MMA tile per warp along the rows.
+//   A tile larger than 64 cells (t=8 in 3D) is cut into slabs of whole
+//   slices along its first axis, each group staging its slab's extended
+//   rows only ((1 + 2) x 10 x 10 cells at t=8, not the tile's 1000), so
+//   wide Cin fits beside the weights.
 // - A block walks many groups (grid-stride over (event, group), as many
 //   blocks as fit on the SMs), so the weight copy and the offset, geometry
 //   and affine tables are set up once per block, not once per 64 rows.
 // - Each group's 27 neighbor rows per tile are read into registers one
 //   group ahead, so their loads land while the previous group multiplies.
-//   The extended block comes by 16-byte cp.async (zero-filled for a
-//   missing neighbor), all of a block's copies in flight at once; at
-//   Cin < 16 it is staged at its true width by plain loads.
-// - Where the stack and one buffer of the whole extended block fit the
+//   The extended rows come by 16-byte cp.async (zero-filled for a missing
+//   neighbor), all of a block's copies in flight at once; at Cin < 16 they
+//   are staged at their true width, and at Cin not a multiple of 8 by
+//   plain loads, zero-padded to 16.
+// - Where the stack and one buffer of the group's extended rows fit the
 //   227 KB a block may use, the block stages a group, then multiplies it
 //   (several blocks per SM overlap each other). Where they do not (wide
 //   Cin: dec L3 128->64 holds 442 KB of weights), Cout is split across
-//   blocks (blockIdx.y), each staging the extended block itself, and the
-//   block runs a pipeline of two buffers of channel chunks instead: the
-//   next chunk's copies fly while the MMAs run on this one. The plan takes
-//   the pipeline where it needs fewer slices (dec L3: 4 slices, not 8),
-//   and the widest chunks that fit. With one block per SM two warps share
-//   each 16 rows, one per half of the slice.
+//   blocks (blockIdx.y, at most 128 channels a slice), each staging the
+//   extended rows itself, and the block runs a pipeline of two buffers of
+//   channel chunks (at most 128 channels) instead: the next chunk's copies
+//   fly while the MMAs run on this one. The plan takes the pipeline where
+//   it needs fewer slices (dec L3: 4 slices, not 8), or where Cin is wider
+//   than one chunk, and the widest chunks that fit. At 256 wide a slice is
+//   8 channels, so each of 32 slices re-reads the input. With one block
+//   per SM two warps share each 16 rows, one per half of the slice.
 // - The epilogue (per-channel affine, leaky, cell mask) runs on the f32
 //   accumulators and rounds once on store; a tile at or past the live
 //   prefix (blive = 0) writes zeros, and a group with no live tile skips
@@ -75,15 +86,20 @@ constexpr int kMaxThreads = 2 * kWarpsM * 32;
 constexpr int kPad = 8;                   // bf16 pad per smem row (bank spread)
 constexpr int kMaxNbr = 216;              // tiles x K per group: 8 x 27, 16 x 9
 constexpr int kMaxK = 27;
-constexpr int kMaxSteps = kMaxK * 8;      // depth steps of one chunk (128 channels)
+constexpr int kMaxChunk = 128;            // channels per staged chunk
+constexpr int kMaxSlice = 128;            // output channels per block (ab_s)
+constexpr int kMaxSteps = kMaxK * kMaxChunk / 16;   // depth steps of one chunk
 constexpr int kMaxEcells = 1000;          // (t + 2)^dim for t = 8, dim 3
 constexpr int kMaxSmem = 232448 - 8192;   // dynamic smem, the static tables aside
 
 // the shape and the launch plan, shared by host and device
 struct Plan {
   int T, t, dim, Cin, Cout;
+  int coutp;                 // Cout padded to 8: the MMA's N side
   int cells, ecells, K;      // t^dim, (t+2)^dim, 3^dim
-  int tiles, mtiles;         // tiles per group, 16-row MMA tiles per group
+  int tiles, subs;           // tiles per group; groups per tile (slabs)
+  int gc, gcells, zoff;      // a tile's output cells, its ext cells staged
+  //                            and the slab's ext-cell shift, per group
   int per_event, groups;     // groups per event, in all
   int cpad;                  // Cin padded to 16 (Cin when packed)
   int cw, nch;               // channels per staged chunk, chunks per group
@@ -94,7 +110,7 @@ struct Plan {
   int wn;                    // warps per 16 rows, each a share of the slice
   int vec;                   // stage 8 channels per 16-byte cp.async
   int ahead;                 // two ext buffers: stage the next chunk ahead
-  FastDiv by_unit, by_ecells, by_per_event, by_cin;
+  FastDiv by_unit, by_gcells, by_per_event, by_subs, by_cin;
   size_t w_bytes, ext_bytes, smem;
 };
 
@@ -127,7 +143,7 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
   //                                         (tile, offset), -1 = none
   __shared__ int shift_s[kMaxK];          // ext-row shift of each offset, x sa
   __shared__ short esrc[kMaxEcells];      // ext_source of each ext cell
-  __shared__ float2 ab_s[128];            // the slice's (a, b)
+  __shared__ float2 ab_s[kMaxSlice];      // the slice's (a, b); (1, 0) past Cout
   // depth table: packed, the smem offset of each depth kk (row + shift,
   // channel); else per depth step of a chunk, (A offset, B depth) as one
   // 8-byte entry, read in one load
@@ -163,7 +179,8 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
       esrc[e] = (short)ext_source(e, p.t, p.dim);
     if (kEpilogue)
       for (int c = tid; c < p.cs; c += nthreads)
-        ab_s[c] = make_float2(a[n_lo + c], b[n_lo + c]);
+        ab_s[c] = n_lo + c < p.Cout ? make_float2(a[n_lo + c], b[n_lo + c])
+                                    : make_float2(1.f, 0.f);
     __syncthreads();
     if (kPacked) {  // depth kk = k*Cin + c reads ext row + shift_k, channel c;
       //               the padded depth reads the row itself (its weights are 0)
@@ -197,9 +214,17 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
   // the two the loads are in flight.
   uint8_t pl[2], po[2];
   int pi[2];
+  // group grp = (event ev, its first tile tile0, slab sub of that tile)
+  auto locate = [&](int grp, int& ev, int& tile0, int& sub) {
+    ev = p.by_per_event.div(grp);
+    const int r = grp - ev * p.per_event;
+    const int tg = p.by_subs.div(r);
+    sub = r - tg * p.subs;
+    tile0 = tg * p.tiles;
+  };
   auto prefetch = [&](int grp) {
-    const int ev = p.by_per_event.div(grp);
-    const int tile0 = (grp - ev * p.per_event) * p.tiles;
+    int ev, tile0, sub;
+    locate(grp, ev, tile0, sub);
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
       const int i = tid + e * nthreads;
@@ -219,8 +244,8 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
     }
   };
   auto take = [&](int grp, int* nb) {
-    const int ev = p.by_per_event.div(grp);
-    const int tile0 = (grp - ev * p.per_event) * p.tiles;
+    int ev, tile0, sub;
+    locate(grp, ev, tile0, sub);
     bool mine = false;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
@@ -237,20 +262,23 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
     }
     return mine;
   };
-  // start staging channels [ch*cw, ch*cw + cw) of a group's extended block
-  // into eb (zeros past Cin and for a missing neighbor): cp.async,
-  // committed by the caller, or plain loads and stores off the vector path
+  // start staging channels [ch*cw, ch*cw + cw) of a group's extended
+  // rows (each tile's whole block, or the slab's ext cells [sub * zoff,
+  // sub * zoff + gcells)) into eb (zeros past Cin and for a missing
+  // neighbor): cp.async, committed by the caller, or plain loads and
+  // stores off the vector path
   auto stage = [&](int grp, int ch, const int* nb, __nv_bfloat16* eb) {
-    const int ev = p.by_per_event.div(grp);
+    int ev, tile0, sub;
+    locate(grp, ev, tile0, sub);
     const __nv_bfloat16* xev = x + (size_t)ev * p.T * p.cells * p.Cin;
     const int unit = p.vec ? 8 : 1;
     const int per_cell = p.cw / unit;
     const int c_lo = ch * p.cw;
-    for (int i = tid; i < p.tiles * p.ecells * per_cell; i += nthreads) {
-      const int cellu = p.by_unit.div(i);           // tile * ecells + e
+    for (int i = tid; i < p.tiles * p.gcells * per_cell; i += nthreads) {
+      const int cellu = p.by_unit.div(i);           // tile * gcells + e
       const int c = (i - cellu * per_cell) * unit;
-      const int j = p.by_ecells.div(cellu);
-      const int es = esrc[cellu - j * p.ecells];
+      const int j = p.by_gcells.div(cellu);
+      const int es = esrc[sub * p.zoff + cellu - j * p.gcells];
       const int r = nb[j * p.K + (es & 31)];
       const bool hit = r >= 0 && c_lo + c < p.Cin;
       const __nv_bfloat16* src =
@@ -304,68 +332,66 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
 
     const int* nb = nbr[nb_i];
     const __nv_bfloat16* eb = ext_s + eb_i * ext_elems;
-    const int ev = p.by_per_event.div(grp);
-    const int tile0 = (grp - ev * p.per_event) * p.tiles;
+    int ev, tile0, sub;
+    locate(grp, ev, tile0, sub);
     const size_t evrow = (size_t)ev * p.T;
-    // one m-tile per warp, or (nch == 1) each of several in turn
-    for (int mt = wm; mt < p.mtiles; mt += kWarpsM) {
-      if (any_live) {
-        // A: this lane's ldmatrix row (unpacked) or its rows g, g + 8
-        // (packed), at their own ext rows
-        int rb[2];
+    const int mt = wm;        // each warp's one 16-row MMA tile of the group
+    if (any_live) {
+      // A: this lane's ldmatrix row (unpacked) or its rows g, g + 8
+      // (packed), at their own ext rows
+      int rb[2];
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int m = mt * 16 + (kPacked ? g + 8 * h : a_row);
-          const int j = m / p.cells;
-          rb[h] = (j * p.ecells + halo::cell_ext_row(m - j * p.cells, p.t, p.dim)) * p.sa
-                  + (kPacked ? 0 : a_col);
+      for (int h = 0; h < 2; ++h) {
+        const int m = mt * 16 + (kPacked ? g + 8 * h : a_row);
+        const int j = m / p.gc, cell = sub * p.gc + m - j * p.gc;
+        rb[h] = (j * p.gcells + halo::cell_ext_row(cell, p.t, p.dim) - sub * p.zoff) * p.sa
+                + (kPacked ? 0 : a_col);
+      }
+      const __nv_bfloat16* wch = w_warp + ch * p.cw;
+      // the fragments of depth step ks: A at the step's shifted rows, B
+      // from the resident weights; loaded one step ahead of the MMAs
+      auto load = [&](int ks, uint32_t* af, uint32_t* bf) {
+        const __nv_bfloat16* wb;
+        if (kPacked) {
+          const int* o = dtab + ks * 16 + 2 * q;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const __nv_bfloat16* e = eb + rb[h];
+            af[h] = pack2(e[o[0]], e[o[1]]);
+            af[2 + h] = pack2(e[o[8]], e[o[9]]);
+          }
+          wb = wch + ks * 16;
+        } else {
+          const int2 o = dtab2[ks];
+          ldsm_x4(af, eb + rb[0] + o.x);
+          wb = wch + o.y;
         }
-        const __nv_bfloat16* wch = w_warp + ch * p.cw;
-        // the fragments of depth step ks: A at the step's shifted rows, B
-        // from the resident weights; loaded one step ahead of the MMAs
-        auto load = [&](int ks, uint32_t* af, uint32_t* bf) {
-          const __nv_bfloat16* wb;
-          if (kPacked) {
-            const int* o = dtab + ks * 16 + 2 * q;
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const __nv_bfloat16* e = eb + rb[h];
-              af[h] = pack2(e[o[0]], e[o[1]]);
-              af[2 + h] = pack2(e[o[8]], e[o[9]]);
-            }
-            wb = wch + ks * 16;
-          } else {
-            const int2 o = dtab2[ks];
-            ldsm_x4(af, eb + rb[0] + o.x);
-            wb = wch + o.y;
-          }
+        for (int n = 0; n + 1 < NTW; n += 2)
+          ldsm_x4(bf + 2 * n, wb + (size_t)n * 8 * p.sw);
+        if (NTW & 1) ldsm_x2(bf + 2 * (NTW - 1), wb + (size_t)(NTW - 1) * 8 * p.sw);
+      };
+      auto mma = [&](const uint32_t* af, const uint32_t* bf) {
 #pragma unroll
-          for (int n = 0; n + 1 < NTW; n += 2)
-            ldsm_x4(bf + 2 * n, wb + (size_t)n * 8 * p.sw);
-          if (NTW & 1) ldsm_x2(bf + 2 * (NTW - 1), wb + (size_t)(NTW - 1) * 8 * p.sw);
-        };
-        auto mma = [&](const uint32_t* af, const uint32_t* bf) {
-#pragma unroll
-          for (int n = 0; n < NTW; ++n) halo::mma_16816(acc[n], af, bf[2 * n], bf[2 * n + 1]);
-        };
-        uint32_t a0[4], b0[2 * NTW], a1[4], b1[2 * NTW];
-        load(0, a0, b0);
-        for (int ks = 0; ks < csteps; ks += 2) {
-          if (ks + 1 < csteps) load(ks + 1, a1, b1);
-          mma(a0, b0);
-          if (ks + 1 < csteps) {
-            if (ks + 2 < csteps) load(ks + 2, a0, b0);
-            mma(a1, b1);
-          }
+        for (int n = 0; n < NTW; ++n) halo::mma_16816(acc[n], af, bf[2 * n], bf[2 * n + 1]);
+      };
+      uint32_t a0[4], b0[2 * NTW], a1[4], b1[2 * NTW];
+      load(0, a0, b0);
+      for (int ks = 0; ks < csteps; ks += 2) {
+        if (ks + 1 < csteps) load(ks + 1, a1, b1);
+        mma(a0, b0);
+        if (ks + 1 < csteps) {
+          if (ks + 2 < csteps) load(ks + 2, a0, b0);
+          mma(a1, b1);
         }
       }
-      if (!last) continue;
-
+    }
+    if (last) {
       // epilogue + store: c0,c1 -> row g, cols 2q, 2q+1; c2,c3 -> row g + 8
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = mt * 16 + g + 8 * h;
-        const int j = m / p.cells, cell = m - j * p.cells;
+        const int j = m / p.gc, cell = sub * p.gc + m - j * p.gc;
         const int tile = tile0 + j;
         if (tile >= p.T) continue;
         const size_t row = evrow + tile;
@@ -375,6 +401,7 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
 #pragma unroll
         for (int n = 0; n < NTW; ++n) {
           const int col = (wn * NTW + n) * 8 + 2 * q;
+          if (n_lo + col >= p.Cout) continue;      // the pad's columns
           float z0 = acc[n][2 * h], z1 = acc[n][2 * h + 1];
           if (kEpilogue) {
             const float2 ab0 = ab_s[col], ab1 = ab_s[col + 1];
@@ -384,7 +411,12 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ x,
             z1 = z1 >= 0.f ? z1 : alpha * z1;
           }
           if (!keep) z0 = z1 = 0.f;
-          *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(z0, z1);
+          if (p.Cout % 2 == 0) {   // col even: the pair is 4-byte aligned
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(z0, z1);
+          } else {
+            orow[col] = __float2bfloat16(z0);
+            if (n_lo + col + 1 < p.Cout) orow[col + 1] = __float2bfloat16(z1);
+          }
         }
       }
 #pragma unroll
@@ -418,7 +450,7 @@ int launch(const void* x, const void* wt, const void* idx, const void* ok,
                                                          p.smem)) != cudaSuccess)
     return (int)e;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int slices = p.Cout / p.cs;
+  const int slices = p.coutp / p.cs;
   int gx = (sms * per_sm + slices - 1) / slices;
   if (gx > p.groups) gx = p.groups;
   kernel<<<dim3(gx, slices), threads, p.smem, stream>>>(
@@ -432,23 +464,33 @@ int launch(const void* x, const void* wt, const void* idx, const void* ok,
 // per 16 rows where only one block fits an SM. Mirrored by
 // ops/cuda/halo_conv.py:kernel_plan.
 int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
-  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout % 8 || Cout > 128 || B < 1)
+  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
+  p.coutp = (Cout + 7) / 8 * 8;
   p.cells = ipow(t, dim);
   p.ecells = ipow(t + 2, dim);
   p.K = ipow(3, dim);
   if (p.ecells > kMaxEcells) return (int)cudaErrorInvalidValue;
-  if (p.cells <= kRows) {
+  if (p.cells <= kRows) {   // whole tiles
     if (kRows % p.cells) return (int)cudaErrorInvalidValue;
     p.tiles = kRows / p.cells;
-  } else {
-    if (p.cells % kRows) return (int)cudaErrorInvalidValue;
+    p.subs = 1;
+    p.gc = p.cells;
+    p.gcells = p.ecells;
+    p.zoff = 0;
+  } else {                  // slabs of `rows` whole slices along axis 0
+    const int slice = p.cells / t;
+    if (kRows % slice || t % (kRows / slice)) return (int)cudaErrorInvalidValue;
+    const int rows = kRows / slice, plane = ipow(t + 2, dim - 1);
     p.tiles = 1;
+    p.subs = t / rows;
+    p.gc = kRows;
+    p.gcells = (rows + 2) * plane;
+    p.zoff = rows * plane;
   }
   if (p.tiles * p.K > kMaxNbr) return (int)cudaErrorInvalidValue;
-  p.mtiles = p.tiles * p.cells / 16;
-  p.per_event = (T + p.tiles - 1) / p.tiles;
+  p.per_event = (T + p.tiles - 1) / p.tiles * p.subs;
   p.groups = B * p.per_event;
   const bool packed = Cin < 16;
   p.cpad = packed ? Cin : (Cin + 15) / 16 * 16;
@@ -457,16 +499,18 @@ int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool ali
   p.vec = !packed && Cin % 8 == 0 && aligned;
   auto ext_bytes = [&](int cw) {
     const size_t sa = packed ? cw : cw + kPad;
-    return ((size_t)p.tiles * p.ecells * sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
+    return ((size_t)p.tiles * p.gcells * sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
   };
-  // fewest Cout slices (n-tiles d per slice) whose weights and `bufs`
-  // buffers of chunk width cw fit, with the widest cw; 0 if none
-  const int n = Cout / 8;
+  // fewest Cout slices (n-tiles d per slice, at most kMaxSlice channels)
+  // whose weights and `bufs` buffers of chunk width cw fit, with the
+  // widest cw (at most kMaxChunk); 0 if none
+  const int n = p.coutp / 8;
   auto fit = [&](int bufs, bool chunks, int* cw_out) {
-    for (int d = n; d >= 1; --d) {
+    for (int d = n < kMaxSlice / 8 ? n : kMaxSlice / 8; d >= 1; --d) {
       if (n % d) continue;
       const size_t wb = (size_t)d * 8 * p.sw * sizeof(__nv_bfloat16);
-      for (int cw = p.cpad; cw >= (chunks ? 16 : p.cpad); cw -= 16) {
+      const int widest = chunks && p.cpad > kMaxChunk ? kMaxChunk : p.cpad;
+      for (int cw = widest; cw >= (chunks ? 16 : p.cpad); cw -= 16) {
         if (p.cpad % cw) continue;
         if (wb + bufs * ext_bytes(cw) <= (size_t)kMaxSmem) {
           *cw_out = cw;
@@ -476,13 +520,13 @@ int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool ali
     }
     return 0;
   };
-  // one buffer of the whole extended block, staged and then multiplied;
-  // or, where that needs more Cout slices (wide Cin), a pipeline of two
-  // buffers of channel chunks (the accumulators stay in registers across
-  // a group's chunks, so only where each warp has one 16-row tile)
+  // one buffer of a group's whole extended rows, staged and then
+  // multiplied; or, where that needs more Cout slices or Cin is wider than
+  // one chunk, a pipeline of two buffers of channel chunks (the
+  // accumulators stay in registers across a group's chunks)
   int cw1 = 0, cw2 = 0;
-  const int d1 = fit(1, false, &cw1);
-  const int d2 = !packed && p.mtiles <= kWarpsM ? fit(2, true, &cw2) : 0;
+  const int d1 = p.cpad <= kMaxChunk ? fit(1, false, &cw1) : 0;
+  const int d2 = packed ? 0 : fit(2, true, &cw2);
   p.ahead = d2 > d1;
   const int d = p.ahead ? d2 : d1;
   p.cs = d * 8;
@@ -496,8 +540,9 @@ int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool ali
   p.wn = (2 * p.smem > (size_t)kMaxSmem && (p.cs / 8) % 2 == 0) ? 2 : 1;
   const int unit = p.vec ? 8 : 1;
   p.by_unit = FastDiv(p.cw / unit);
-  p.by_ecells = FastDiv(p.ecells);
+  p.by_gcells = FastDiv(p.gcells);
   p.by_per_event = FastDiv(p.per_event);
+  p.by_subs = FastDiv(p.subs);
   p.by_cin = FastDiv(Cin);
   return 0;
 }
@@ -545,7 +590,8 @@ int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
 
 extern "C" {
 
-// bfloat16 tensors, f32 affine; wt is the GEMM's B operand (Cout, kp), kp =
+// bfloat16 tensors, f32 affine; wt is the GEMM's B operand (Cout padded to
+// 8 with zero rows, kp), kp =
 // 3^dim x round_up(Cin, 16) offset-major, or round_up(3^dim x Cin, 16) with
 // the offsets packed for Cin < 16 (ops/cuda/halo_conv.py:kernel_weights),
 // zero-padded. Returns a cudaError_t (0 = launched).

@@ -16,15 +16,16 @@
 // Cin = 1 included, and computes d_W itself.
 //
 // What bounds it on an H100: d_W is a GEMM with a tiny output (27 x Cin x
-// Cout, at most 27x128x128 f32) and a reduction over millions of cells:
-// M = (offset, input channel), N = output channel, depth = cells. Its card
-// bound is the bytes of x and g (0.05 ms at config-4 L0); a kernel pays on
-// top for staging the extended tiles (indexed loads of neighbor rows; at
-// t=2 the extended block is 8x the tile) and for the latency of each
-// chunk's loads and barriers. The earlier design gave each block one group
-// of 9 offsets and a 16-channel input slice, so every chunk was staged
-// 3-15 times (once per block row), with no copy in flight while the MMAs
-// ran, and the stem staged 16 channels a cell for its one.
+// Cout, at most 27x256x256 f32 at the repo's widths) and a reduction over
+// millions of cells: M = (offset, input channel), N = output channel,
+// depth = cells. Its card bound is the bytes of x and g (0.05 ms at
+// config-4 L0); a kernel pays on top for staging the extended tiles
+// (indexed loads of neighbor rows; at t=2 the extended block is 8x the
+// tile) and for the latency of each chunk's loads and barriers. The
+// earlier design gave each block one group of 9 offsets and a 16-channel
+// input slice, so every chunk was staged 3-15 times (once per block row),
+// with no copy in flight while the MMAs ran, and the stem staged 16
+// channels a cell for its one.
 //
 // Design:
 // - A block owns a 16-channel input slice and ALL offsets for a slice of
@@ -36,8 +37,10 @@
 //   tiles than warps (the stem), the warps of a group split the chunk's
 //   16-cell depth steps round-robin instead. Each warp keeps its mw x Cout
 //   slice x 16 accumulators in registers over all its chunks (at most 120
-//   f32 a lane: wider Cout is split across blocks, not offsets) and adds
-//   them into d_W once, with atomics.
+//   f32 a lane: wider Cout is split across blocks, not offsets, in
+//   slices of at most 128) and adds them into d_W once, with atomics. Cout
+//   not a multiple of 8 runs on zero g columns up to the next multiple (g
+//   then staged by plain loads) and adds only the real columns.
 // - A block walks chunks of whole tiles (256 cells: 4 tiles at t=4, 32 at
 //   t=2) in a grid-stride loop, one wave of blocks; the per-block tables
 //   (each extended cell's source, each chunk cell's extended row) are built
@@ -79,6 +82,8 @@ constexpr size_t kMaxSmem = 232448;       // dynamic shared memory a block may u
 // the shape and the launch plan, shared by host and device
 struct DwPlan {
   int T, t, dim, Cin, Cout;
+  int coutp;                 // Cout padded to 8: the MMA's N side
+  int gvec;                  // stage g by 16-byte copies (Cout % 8 == 0)
   int cells, ecells, K;      // t^dim, (t+2)^dim, 3^dim
   int tiles, chunk, ksteps;  // tiles, cells and 16-cell depth steps per chunk
   int per_event, chunks;     // chunks per event, in all
@@ -107,9 +112,10 @@ __device__ __forceinline__ void ldsm_x2_trans(uint32_t* r, const void* p) {
                : "r"(a));
 }
 
-// x (B,T,cells,Cin) bf16, g (B,T,cells,Cout) bf16 (16-byte aligned),
+// x (B,T,cells,Cin) bf16, g (B,T,cells,Cout) bf16 (16-byte aligned where
+// Cout % 8 == 0),
 // idx/ok (B,K-1,T), live (B,T), dw (K,Cin,Cout) f32, zeroed by the caller.
-// blockIdx.y = Cin slice * (Cout / cs) + Cout slice.
+// blockIdx.y = Cin slice * (coutp / cs) + Cout slice.
 template <int MW, int NT, bool kPacked>
 __global__ void __launch_bounds__(kThreads)
 halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
@@ -126,7 +132,7 @@ halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int gq = lane >> 2, q = lane & 3;
-  const int nslices = p.Cout / p.cs;
+  const int nslices = p.coutp / p.cs;
   const int c_lo = (blockIdx.y / nslices) * 16;         // unpacked only
   const int co_lo = (blockIdx.y % nslices) * p.cs;
   const int center = p.K / 2;
@@ -214,8 +220,8 @@ halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
   };
   // stage a chunk's extended rows (this block's channels, zeros past Cin
   // and for a missing neighbor) and its g rows (this block's Cout slice,
-  // zeros on dead tiles) into b: cp.async, committed by the caller; the
-  // extended rows by plain loads and stores off the vector path
+  // zeros on dead tiles and past Cout) into b: cp.async, committed by the
+  // caller; by plain loads and stores off the vector paths
   auto stage = [&](int c, const int* nb, __nv_bfloat16* b) {
     const int ev = p.by_per_event.div(c);
     const int tile0 = (c - ev * p.per_event) * p.tiles;
@@ -240,13 +246,23 @@ halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
     }
     const __nv_bfloat16* gev = g + ((size_t)ev * p.T + tile0) * p.cells * p.Cout + co_lo;
     __nv_bfloat16* gb = b + p.ext_elems;
-    const int gvec = p.cs / 8;
-    for (int i = tid; i < p.chunk * gvec; i += kThreads) {
-      const int cell = i / gvec;
-      const int ch = (i - cell * gvec) * 8;
-      const bool hit = nb[(cell / p.cells) * p.K + center] >= 0;
-      cp_async16(gb + (size_t)cell * p.sg + ch,
-                 hit ? gev + (size_t)cell * p.Cout + ch : gev, hit);
+    if (p.gvec) {
+      const int per = p.cs / 8;
+      for (int i = tid; i < p.chunk * per; i += kThreads) {
+        const int cell = i / per;
+        const int ch = (i - cell * per) * 8;
+        const bool hit = nb[(cell / p.cells) * p.K + center] >= 0;
+        cp_async16(gb + (size_t)cell * p.sg + ch,
+                   hit ? gev + (size_t)cell * p.Cout + ch : gev, hit);
+      }
+    } else {
+      for (int i = tid; i < p.chunk * p.cs; i += kThreads) {
+        const int cell = i / p.cs;
+        const int ch = i - cell * p.cs;
+        const bool hit = nb[(cell / p.cells) * p.K + center] >= 0 && co_lo + ch < p.Cout;
+        gb[(size_t)cell * p.sg + ch] = hit ? gev[(size_t)cell * p.Cout + ch]
+                                           : __float2bfloat16(0.f);
+      }
     }
   };
 
@@ -339,8 +355,9 @@ halo_conv_dw_kernel(const __nv_bfloat16* __restrict__ x,
       float* out = dw + (size_t)row * p.Cout + co_lo + 2 * q;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        atomicAdd(out + n * 8, acc[i][n][2 * h]);
-        atomicAdd(out + n * 8 + 1, acc[i][n][2 * h + 1]);
+        const int co = co_lo + 2 * q + n * 8;    // the pad's columns add nothing
+        if (co < p.Cout) atomicAdd(out + n * 8, acc[i][n][2 * h]);
+        if (co + 1 < p.Cout) atomicAdd(out + n * 8 + 1, acc[i][n][2 * h + 1]);
       }
     }
   }
@@ -383,7 +400,7 @@ int launch(const void* x, const void* g, const void* idx, const void* ok,
   }
   // one wave: as many blocks as fit on the SMs at once (a second, partial
   // wave would double the time of the blocks in it)
-  const int gy = p.cslices * (p.Cout / p.cs);
+  const int gy = p.cslices * (p.coutp / p.cs);
   int gx = blocks / gy;
   if (gx < 1) gx = 1;
   if (gx > p.chunks) gx = p.chunks;
@@ -396,10 +413,11 @@ int launch(const void* x, const void* g, const void* idx, const void* ok,
 // The plan: chunks of whole tiles; M tiles, warp groups, Cout slices and
 // buffers as above. Mirrored by ops/cuda/halo_conv_dw.py:dw_plan.
 int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
-  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 8 || Cout % 8 || Cout > 128 ||
-      B < 0 || T < 0)
+  if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 1 || B < 0 || T < 0)
     return (int)cudaErrorInvalidValue;
   p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
+  p.coutp = (Cout + 7) / 8 * 8;
+  p.gvec = Cout % 8 == 0;
   p.cells = ipow(t, dim);
   p.ecells = ipow(t + 2, dim);
   p.K = ipow(3, dim);
@@ -426,10 +444,11 @@ int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool a
   p.vec = Cin % 8 == 0 && aligned;
   p.ext_elems = ((size_t)p.tiles * p.ecells * p.sa + 7) / 8 * 8;
   p.table_bytes = ((size_t)(p.ecells + p.chunk + p.tiles * p.K) * sizeof(int) + 15) / 16 * 16;
-  // the widest Cout slice within the accumulator budget whose buffer fits
-  const int n = Cout / 8;
+  // the widest Cout slice (at most 16 n-tiles) within the accumulator
+  // budget whose buffer fits
+  const int n = p.coutp / 8;
   p.cs = 0;
-  for (int d = n; d >= 1 && !p.cs; --d) {
+  for (int d = n < 16 ? n : 16; d >= 1 && !p.cs; --d) {
     if (n % d || p.mw * d * 4 > kMaxAcc) continue;
     const size_t g_elems = (size_t)p.chunk * (d * 8 + kPad);
     const size_t buf = (p.ext_elems + g_elems) * sizeof(__nv_bfloat16);
@@ -472,13 +491,12 @@ int dispatch_nt(const void* x, const void* g, const void* idx, const void* ok,
 
 extern "C" {
 
-// x, g bfloat16 (g 16-byte aligned), dw (K, Cin, Cout) float32 zeroed by
-// the caller; Cout a multiple of 8 up to 128. Returns a cudaError_t
-// (0 = launched).
+// x, g bfloat16 (g 16-byte aligned where Cout % 8 == 0), dw (K, Cin, Cout)
+// float32 zeroed by the caller. Returns a cudaError_t (0 = launched).
 int halo_conv_dw(const void* x, const void* g, const void* idx, const void* ok,
                  const void* live, void* dw, int B, int T, int t, int dim,
                  int Cin, int Cout, void* stream) {
-  if ((uintptr_t)g % 16) return (int)cudaErrorInvalidValue;
+  if (Cout % 8 == 0 && (uintptr_t)g % 16) return (int)cudaErrorInvalidValue;
   DwPlan p;
   const int err = make_plan(p, B, T, t, dim, Cin, Cout, (uintptr_t)x % 16 == 0);
   if (err) return err;

@@ -33,7 +33,7 @@ saves its outputs under `remat_mode="stage_dots"`.
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -77,8 +77,9 @@ def _check(x, w, halo, t, dim, a, b, mask):
                          f"{tuple(w.shape)} do not fit t={t}, dim={dim}")
     if kernel_plan(t, dim, Cin, Cout) is None:
         raise ValueError(f"halo_conv: no plan for t={t}, dim={dim}, Cin="
-                         f"{Cin}, Cout={Cout} (the kernel takes Cout a "
-                         f"multiple of 8 up to 128, where its buffers fit)")
+                         f"{Cin}, Cout={Cout} (the kernel takes tiles that "
+                         f"64-row groups cut, of at most 1000 extended "
+                         f"cells)")
     shapes = [("idx", halo.idx, (B, K - 1, T), torch.int32),
               ("ok", halo.ok, (B, K - 1, T), torch.bool),
               ("blive", halo.blive, (B, T), torch.bool)]
@@ -96,20 +97,49 @@ def _check(x, w, halo, t, dim, a, b, mask):
 
 
 def kernel_weights(w: torch.Tensor) -> torch.Tensor:
-    """(K, Cin, Cout) -> (Cout, kp), zero-padded: the kernel's GEMM B
-    operand, one row per output channel. Depth kk = k * cpad + c with cpad =
-    round_up(Cin, 16) (kp = K * cpad), or, for Cin < 16, kk = k * Cin + c
-    with kp = round_up(K * Cin, 16): the offsets packed into the MMA depth
-    (at most 128 x 3456 values, one small copy per call)."""
+    """(K, Cin, Cout) -> (round_up(Cout, 8), kp), zero-padded: the kernel's
+    GEMM B operand, one row per output channel, the MMA's N side padded
+    with zero rows. Depth kk = k * cpad + c with cpad = round_up(Cin, 16)
+    (kp = K * cpad), or, for Cin < 16, kk = k * Cin + c with kp =
+    round_up(K * Cin, 16): the offsets packed into the MMA depth (one small
+    copy per call)."""
     K, Cin, Cout = w.shape
+    coutp = -(-Cout // 8) * 8
     if Cin < 16:
-        wt = w.new_zeros(Cout, -(-K * Cin // 16) * 16)
-        wt[:, :K * Cin] = w.reshape(K * Cin, Cout).t()
+        wt = w.new_zeros(coutp, -(-K * Cin // 16) * 16)
+        wt[:Cout, :K * Cin] = w.reshape(K * Cin, Cout).t()
     else:
-        wt = w.new_zeros(Cout, K, -(-Cin // 16) * 16)
-        wt[:, :, :Cin] = w.permute(2, 0, 1)
-        wt = wt.reshape(Cout, -1)
+        wt = w.new_zeros(coutp, K, -(-Cin // 16) * 16)
+        wt[:Cout, :, :Cin] = w.permute(2, 0, 1)
+        wt = wt.reshape(coutp, -1)
     return wt
+
+
+class Groups(NamedTuple):
+    """How the kernel cuts a level into groups of 64 output rows
+    (`make_plan` in csrc/halo_conv.cu): `tiles` whole tiles (t^dim <= 64),
+    or, for a larger tile, `subs` slabs of whole slices along its first
+    axis, each staging the ext cells [sub * zoff, sub * zoff + gcells) of
+    its tile's (t+2)^dim block."""
+    tiles: int
+    subs: int
+    gcells: int
+    zoff: int
+
+
+def groups(t: int, dim: int) -> Optional[Groups]:
+    """The kernel's groups at tile size t, or None where 64-row groups do
+    not cut the tile (or its extended block passes 1000 cells)."""
+    cells, ecells = t ** dim, (t + 2) ** dim
+    if ecells > 1000:
+        return None
+    if cells <= 64:
+        return None if 64 % cells else Groups(64 // cells, 1, ecells, 0)
+    slice_ = cells // t
+    if 64 % slice_ or t % (64 // slice_):
+        return None
+    rows, plane = 64 // slice_, (t + 2) ** (dim - 1)
+    return Groups(1, t // rows, (rows + 2) * plane, rows * plane)
 
 
 @functools.lru_cache(maxsize=None)
@@ -118,40 +148,37 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[tuple]:
     kernel's plan, mirrored from `make_plan` in csrc/halo_conv.cu, or None
     where the kernel takes no such conv: the one statement of its limits,
     asked by the wrapper's check and by `ops/tile_conv.py`'s choice of
-    path. Cout is a multiple of 8 up to 128. Each block holds its Cout
-    slice's weight rows in shared memory (227 KB a block, less 8 KB of
-    static tables) beside either one buffer of the whole extended block,
-    or two buffers of channel chunks (a multiple of 16 dividing the padded
-    Cin), pipelined: the latter only where it takes fewer slices, at Cin
-    >= 16 and with one 16-row tile per warp. Both take the fewest slices,
-    then the widest chunk."""
-    if Cin < 1 or Cout < 8 or Cout % 8 or Cout > 128:
+    path. Output rows come in groups of 64 (`groups`). Cout is padded to a
+    multiple of 8 (`kernel_weights`' zero rows) and split into slices of
+    at most 128. Each block holds its slice's weight rows in shared memory
+    (227 KB a block, less 8 KB of static tables) beside either one buffer
+    of a group's extended rows (padded Cin at most 128), or two buffers of
+    channel chunks (a multiple of 16 up to 128 dividing the padded Cin),
+    pipelined: the latter where it takes fewer slices or Cin is wider, at
+    Cin >= 16. Both take the fewest slices, then the widest chunk."""
+    grp = groups(t, dim)
+    K = 3 ** dim
+    if Cin < 1 or Cout < 1 or grp is None or grp.tiles * K > 216:
         return None
-    cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
-    if ecells > 1000 or (64 % cells if cells <= 64 else cells % 64):
-        return None
-    tiles = max(1, 64 // cells)
-    if tiles * K > 216:
-        return None
+    tiles, gcells = grp.tiles, grp.gcells
     packed = Cin < 16
     cpad = Cin if packed else -(-Cin // 16) * 16
     kp = -(-K * Cin // 16) * 16 if packed else K * cpad
-    n = Cout // 8
+    n = -(-Cout // 8)
 
     def fit(bufs, widths):
-        for d in range(n, 0, -1):
+        for d in range(min(n, 16), 0, -1):
             for cw in widths:
                 sa = cw if packed else cw + 8
-                ext = -(-tiles * ecells * sa * 2 // 16) * 16
+                ext = -(-tiles * gcells * sa * 2 // 16) * 16
                 if n % d == 0 and d * 8 * (kp + 8) * 2 + bufs * ext \
                         <= 232448 - 8192:
                     return d, cw
         return 0, 0
 
-    one = fit(1, [cpad])
-    two = (0, 0)
-    if not packed and tiles * cells // 16 <= 4:
-        two = fit(2, [c for c in range(cpad, 0, -16) if cpad % c == 0])
+    one = fit(1, [cpad]) if cpad <= 128 else (0, 0)
+    two = (0, 0) if packed else fit(
+        2, [c for c in range(min(cpad, 128), 0, -16) if cpad % c == 0])
     d, cw = two if two[0] > one[0] else one
     return (8 * d, cw) if d else None
 

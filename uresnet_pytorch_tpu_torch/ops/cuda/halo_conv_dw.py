@@ -79,13 +79,12 @@ def dw_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[DwPlan]:
     """The kernel's plan for a shape, mirrored from `make_plan` in
     csrc/halo_conv_dw.cu, or None where the kernel takes no such d_W: the
     one statement of its limits, asked by the wrapper's check and by
-    `ops/tile_conv.py`'s choice of path. Cout is a multiple of 8 up to
-    128; chunks are 256 cells of whole tiles (one tile where a tile is
-    larger); the Cout slice is the widest whose accumulators (mw x cs / 8
-    x 4 f32 a lane) stay within 120 and whose buffer fits in 227 KB beside
-    the tables."""
-    if dim not in (2, 3) or t < 2 or Cin < 1 or Cout < 8 or Cout % 8 \
-            or Cout > 128:
+    `ops/tile_conv.py`'s choice of path. Cout is padded to a multiple of 8
+    on the MMA's N side; chunks are 256 cells of whole tiles (one tile
+    where a tile is larger); the Cout slice is the widest of at most 128
+    channels whose accumulators (mw x cs / 8 x 4 f32 a lane) stay within
+    120 and whose buffer fits in 227 KB beside the tables."""
+    if dim not in (2, 3) or t < 2 or Cin < 1 or Cout < 1:
         return None
     cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
     if cells <= _CHUNK_CELLS and _CHUNK_CELLS % cells == 0:
@@ -106,8 +105,8 @@ def dw_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[DwPlan]:
         return None
     ext = -(-tiles * ecells * sa // 8) * 8
     tables = -(-(ecells + chunk + tiles * K) * 4 // 16) * 16
-    n = Cout // 8
-    for d in range(n, 0, -1):
+    n = -(-Cout // 8)
+    for d in range(min(n, 16), 0, -1):
         if n % d or mw * d * 4 > _MAX_ACC:
             continue
         if tables + (ext + chunk * (8 * d + 8)) * 2 <= _MAX_SMEM:
@@ -129,8 +128,9 @@ def _check(x, g, halo, t, dim):
                          f"{tuple(g.shape)} do not fit t={t}, dim={dim}")
     if dw_plan(t, dim, Cin, Cout) is None:
         raise ValueError(f"halo_conv_dw: no plan for t={t}, dim={dim}, "
-                         f"Cin={Cin}, Cout={Cout} (the kernel takes Cout a "
-                         f"multiple of 8 up to 128, where its buffers fit)")
+                         f"Cin={Cin}, Cout={Cout} (the kernel takes tiles of "
+                         f"whole 16-cell depth steps, where its buffers "
+                         f"fit)")
     shapes = [("idx", halo.idx, (B, K - 1, T), torch.int32),
               ("ok", halo.ok, (B, K - 1, T), torch.bool),
               ("blive", halo.blive, (B, T), torch.bool)]
@@ -154,7 +154,7 @@ def halo_conv_dw(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec, t: int,
     _check(x, g, halo, t, dim)
     B, T, _, Cin = x.shape
     Cout = g.shape[-1]
-    if g.data_ptr() % 16:          # the kernel stages g in 16-byte loads
+    if Cout % 8 == 0 and g.data_ptr() % 16:   # g staged in 16-byte loads
         g = g.clone()
     dw = torch.zeros(3 ** dim, Cin, Cout, dtype=torch.float32,
                      device=x.device)

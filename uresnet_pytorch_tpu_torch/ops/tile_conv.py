@@ -7,19 +7,23 @@ torch version, on a CUDA tensor the hand-written kernel. `chip_smoke.py`
 puts the plain versions in place of the wrappers to run the same model as
 reference on the card.
 
-Two conv paths, chosen per conv by `USE_FUSED` and a static shape rule,
-as the reference chooses them (`tile_conv.py:194-302`, declining its
-fused kernel by dtype and shape). Fused: inference runs a submanifold
-conv with its epilogue in kernel B, and training runs the raw conv
-through `halo_conv_op`, whose gradient is kernels B (d_x) and C (d_W).
-Kernels B and C take bfloat16 and only the widths they plan for
-(`kernel_plan` in `ops/cuda/halo_conv.py`, `dw_plan` in
-`ops/cuda/halo_conv_dw.py`), so on the card every other conv takes the
-unfused path: the halo extend (kernel D, gradient kernel E, any width),
-one VALID conv over the extended tiles, and the epilogue in torch. Data moves between levels through the two
-link gathers, each the other's transpose, so the backward gathers too
-and never scatters. All ops keep the submanifold invariant: inactive
-cells hold exact zeros.
+Two conv paths, chosen per conv by `USE_FUSED` and a static shape rule.
+The reference (`tile_conv.py:194-302`) sends every bfloat16 conv on the
+TPU to its Pallas kernels, whatever the widths: its raw conv chunks any
+Cin and takes any Cout, and where its epilogue-fused variant declines a
+shape it runs that raw Pallas conv and the epilogue in XLA. Only float32
+(or a backend other than the TPU) takes XLA's halo extend and conv. The
+port follows it. Fused: inference runs a submanifold conv with its
+epilogue in kernel B, and training runs the raw conv through
+`halo_conv_op`, whose gradient is kernels B (d_x) and C (d_W). Kernels B
+and C take bfloat16 and the shapes they plan for (`kernel_plan` in
+`ops/cuda/halo_conv.py`, `dw_plan` in `ops/cuda/halo_conv_dw.py`). On
+the card float32, and a shape with no plan, take the unfused path: the
+halo extend (kernel D, gradient kernel E, any width), one VALID conv over
+the extended tiles, and the epilogue in torch. Data moves between levels
+through the two link gathers, each the other's transpose, so the
+backward gathers too and never scatters. All ops keep the submanifold
+invariant: inactive cells hold exact zeros.
 """
 
 from __future__ import annotations
@@ -78,11 +82,10 @@ def unfold2(x: torch.Tensor) -> torch.Tensor:
 # convolutions
 # ---------------------------------------------------------------------------
 
-# None = auto: on the card, the fused path wherever its kernels take the
+# None = auto: on the card, the fused path wherever its kernels plan the
 # conv (`_fused`), else the unfused one, which takes every width and dtype
-# (the reference's rule: f32 keeps its exact halo + conv path, and shapes
-# its fused kernel declines take conv + XLA epilogue). On the CPU auto runs
-# kernel B's plain version for every shape and dtype. Tests and
+# (the reference's rule: f32 keeps its exact halo + conv path). On the CPU
+# auto runs kernel B's plain version for every shape and dtype. Tests and
 # chip_smoke.py force a path by setting this; forced True on a conv the
 # kernels refuse raises in their wrappers.
 USE_FUSED = None
@@ -91,10 +94,11 @@ USE_FUSED = None
 def _fused(x: torch.Tensor, t: int, dim: int, Cout: int, dx: bool = False,
            dw: bool = False) -> bool:
     """Whether a conv of x (.., Cin) to Cout channels takes the fused path:
-    on the card, where x is bfloat16 and kernel B takes the conv (Cin ->
+    on the card, where x is bfloat16 and kernel B plans the conv (Cin ->
     Cout), and, where a gradient flows, kernel B its d_x (the flipped
-    stencil, Cout -> Cin) and kernel C its d_W. Decided from the shapes
-    alone, before any launch."""
+    stencil, Cout -> Cin) and kernel C its d_W: the reference's TPU rule,
+    which sends every bfloat16 conv to its Pallas kernels. Decided from
+    the shapes alone, before any launch."""
     if USE_FUSED is not None:
         return USE_FUSED
     if x.device.type != "cuda":
