@@ -30,6 +30,7 @@ would be applied twice.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -41,9 +42,10 @@ from uresnet_pytorch_tpu_torch.config import URESNetConfig
 from uresnet_pytorch_tpu_torch.models import register_model
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
 from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
-    _DTYPES, _lecun_normal, resolve_device)
+    _DTYPES, _in_span, _lecun_normal, resolve_device)
 from uresnet_pytorch_tpu_torch.ops.voxelize import gather_voxels, voxelize
 from uresnet_pytorch_tpu_torch.parallel.mesh import all_reduce_sum
+from uresnet_pytorch_tpu_torch.utils.timing import span
 
 
 def _channels_last(dim: int) -> torch.memory_format:
@@ -88,11 +90,12 @@ class BNAct(nn.Module):
                                      momentum=cfg.bn_momentum)
 
     def forward(self, x, train: bool = False):
-        y = self.BatchNorm_0(x, train)
-        s = self.cfg.leaky_relu_slope
-        # flax's where(y >= 0, y, s*y): its gradient at 0 is 1
-        y = torch.where(y >= 0, y, s * y) if s > 0 else torch.relu(y)
-        return y.to(_DTYPES[self.cfg.compute_dtype])
+        with span("norm"):
+            y = self.BatchNorm_0(x, train)
+            s = self.cfg.leaky_relu_slope
+            # flax's where(y >= 0, y, s*y): its gradient at 0 is 1
+            y = torch.where(y >= 0, y, s * y) if s > 0 else torch.relu(y)
+            return y.to(_DTYPES[self.cfg.compute_dtype])
 
 
 class Conv(nn.Module):
@@ -180,16 +183,18 @@ class DenseUResNetCore(nn.Module):
                          dtype="float32")
 
     def _block(self, name: str, x, train: bool):
-        block = getattr(self, name)
+        """The block `name` in the span `stage.<name>`, recomputed in
+        backward (span and all) in training, as the reference's remat."""
+        run = functools.partial(_in_span, "stage." + name, getattr(self, name))
         if train and torch.is_grad_enabled():
-            # recompute in backward, training only, as the reference's remat
-            return checkpoint(block, x, train, use_reentrant=False)
-        return block(x, train)
+            return checkpoint(run, x, train, use_reentrant=False)
+        return run(x, train)
 
     def forward(self, vol, train: bool = False):
         cfg = self.cfg
         nlev = len(cfg.n_planes)
-        x = self.stem(vol)
+        with span("stage.stem"):
+            x = self.stem(vol)
         skips = []
         for level in range(nlev):
             for r in range(cfg.reps):
@@ -204,7 +209,8 @@ class DenseUResNetCore(nn.Module):
             x = torch.cat([x, skips[level].to(x.dtype)], dim=1)
             for r in range(cfg.reps):
                 x = self._block(f"dec{level}_block{r}", x, train)
-        return self.head(self.head_bnact(x, train).float())
+        with span("stage.head"):
+            return self.head(self.head_bnact(x, train).float())
 
 
 class UResNetDense(nn.Module):
@@ -240,8 +246,10 @@ class UResNetDense(nn.Module):
         vol = voxelize(coords, values, n_voxels, S).movedim(-1, 1)
         logits = self.core(vol, train).movedim(1, -1)
         zero = torch.zeros((), dtype=torch.int32, device=coords.device)
-        return (gather_voxels(logits, coords, n_voxels, S),
-                {"overflow": zero, "tile_spill": zero, "vox_spill": zero})
+        with span("reorder"):
+            logits = gather_voxels(logits, coords, n_voxels, S)
+        return logits, {"overflow": zero, "tile_spill": zero,
+                        "vox_spill": zero}
 
 
 @register_model("uresnet_dense")

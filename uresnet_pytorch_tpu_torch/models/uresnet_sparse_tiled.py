@@ -30,6 +30,11 @@ recomputes everything, and "none" saves everything.
 
 Both modes take the conv path `ops.tile_conv.USE_FUSED` selects: kernel B
 (`halo_conv_op` in train), or the halo extend and a VALID conv.
+
+While a profiler records, spans (`utils/timing.py:span`) mark the graph
+build, each stage, every BN, submanifold conv and stride-2 conv, and the
+reorder, and the graph build counts each level's live tiles, active
+cells and capacity cells.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from uresnet_pytorch_tpu_torch.ops.tile_conv import (
     submanifold_conv_tiled, upsample_conv_tiled)
 from uresnet_pytorch_tpu_torch.ops.tile_graph import (
     build_tile_graph, graph_overflows, graph_spills, tile_size_at)
+from uresnet_pytorch_tpu_torch.utils.timing import count, span, tracing
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -99,11 +105,12 @@ class BNAct(nn.Module):
 def _bn_flat(bnact: BNAct, y, mask, train: bool = False):
     """BNAct, then re-zero inactive cells (the BN bias would leak nonzeros
     into the dense tile interior)."""
-    out = bnact(y, mask, train)
-    if isinstance(out, tuple):
-        occ = mask[..., None].to(out[0].dtype)
-        return tuple(p * occ for p in out)
-    return out * mask[..., None].to(out.dtype)
+    with span("norm"):
+        out = bnact(y, mask, train)
+        if isinstance(out, tuple):
+            occ = mask[..., None].to(out[0].dtype)
+            return tuple(p * occ for p in out)
+        return out * mask[..., None].to(out.dtype)
 
 
 class SMConvTile(nn.Module):
@@ -118,15 +125,16 @@ class SMConvTile(nn.Module):
     def forward(self, x, level, t, epilogue=None):
         dt = _DTYPES[self.cfg.compute_dtype]
         dim = self.cfg.data_dim
-        if epilogue is None:
-            x = tuple(p.to(dt) for p in x) if isinstance(x, tuple) \
-                else x.to(dt)
-            return submanifold_conv_tiled(x, level.occ, level.halo, t, dim,
-                                          self.w)
-        a, b, alpha, mask = epilogue
-        return submanifold_conv_bn_act_tiled(
-            x.to(dt), level.occ, level.halo, t, dim, self.w, a, b, alpha,
-            mask)
+        with span("conv"):
+            if epilogue is None:
+                x = tuple(p.to(dt) for p in x) if isinstance(x, tuple) \
+                    else x.to(dt)
+                return submanifold_conv_tiled(x, level.occ, level.halo, t,
+                                              dim, self.w)
+            a, b, alpha, mask = epilogue
+            return submanifold_conv_bn_act_tiled(
+                x.to(dt), level.occ, level.halo, t, dim, self.w, a, b, alpha,
+                mask)
 
 
 def _mask_epilogue(features: int, mask, device):
@@ -190,6 +198,11 @@ _SAVE_CONV_OUTPUTS = functools.partial(
     create_selective_checkpoint_contexts,
     [torch.ops.uresnet_torch.halo_conv.default,
      torch.ops.aten.convolution.default])
+
+
+def _in_span(name: str, fn, *args):
+    with span(name):
+        return fn(*args)
 
 
 class SparseUResNetBase(nn.Module):
@@ -260,9 +273,10 @@ class UResNetSparseTiled(SparseUResNetBase):
         if l == cfg.uresnet_num_strides - 1:
             return x, x
         y = _bn_flat(getattr(self, f"down{l}_bnact"), x, mask, train)
-        y = downsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link, t,
-                                  t_next, cfg.data_dim,
-                                  getattr(self, f"down{l}_w"))
+        with span("resample"):
+            y = downsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link,
+                                      t, t_next, cfg.data_dim,
+                                      getattr(self, f"down{l}_w"))
         return x, y * nxt_occ[..., None].to(y.dtype)
 
     def _dec_stage(self, x, skip, l, level, mask, mask_up, link, t, t_up,
@@ -272,9 +286,10 @@ class UResNetSparseTiled(SparseUResNetBase):
         URESNET_EVAL_PAIR=1, else a concat."""
         cfg = self.cfg
         y = _bn_flat(getattr(self, f"up{l}_bnact"), x, mask_up, train)
-        y = upsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link,
-                                level.occ, t, t_up, cfg.data_dim,
-                                getattr(self, f"up{l}_w"))
+        with span("resample"):
+            y = upsample_conv_tiled(y.to(_DTYPES[cfg.compute_dtype]), link,
+                                    level.occ, t, t_up, cfg.data_dim,
+                                    getattr(self, f"up{l}_w"))
         skip = skip.to(y.dtype)
         if train or os.environ.get("URESNET_EVAL_PAIR") == "1":
             y = (y, skip)
@@ -288,9 +303,11 @@ class UResNetSparseTiled(SparseUResNetBase):
         y = _bn_flat(self.head_bnact, x, mask, train)
         return torch.matmul(y.float(), self.head_w) + self.head_b
 
-    def _stage(self, fn, train: bool, level0: bool, *args):
-        """fn(*args), recomputed in backward as cfg.remat_mode says (train
-        with autograd on only; inference never recomputes)."""
+    def _stage(self, name: str, fn, train: bool, level0: bool, *args):
+        """fn(*args) in the span `stage.<name>`, recomputed in backward
+        (span and all) as cfg.remat_mode says (train with autograd on only;
+        inference never recomputes)."""
+        fn = functools.partial(_in_span, "stage." + name, fn)
         mode = self.cfg.remat_mode
         if not train or mode == "none" or not torch.is_grad_enabled():
             return fn(*args)
@@ -302,51 +319,63 @@ class UResNetSparseTiled(SparseUResNetBase):
     def forward(self, coords, values, n_voxels, train: bool = False):
         cfg = self.cfg
         dt = _DTYPES[cfg.compute_dtype]
-        graph = build_tile_graph(coords, values, n_voxels, cfg)
-        diag = {"overflow": graph_overflows(graph),
-                "tile_spill": graph_spills(graph),
-                "vox_spill": graph.vox_spill.sum()}
-        levels, links = graph.levels, graph.links
-        nlev = len(levels)
-        tsz = [tile_size_at(cfg, l) for l in range(nlev)]
+        with span("graph_build"):
+            graph = build_tile_graph(coords, values, n_voxels, cfg)
+            diag = {"overflow": graph_overflows(graph),
+                    "tile_spill": graph_spills(graph),
+                    "vox_spill": graph.vox_spill.sum()}
+            levels, links = graph.levels, graph.links
+            nlev = len(levels)
+            tsz = [tile_size_at(cfg, l) for l in range(nlev)]
 
-        def mask_of(lev):
-            rows = torch.arange(lev.keys.shape[1], device=lev.keys.device)
-            return lev.occ & (rows[None] < lev.num[:, None])[..., None]
+            def mask_of(lev):
+                rows = torch.arange(lev.keys.shape[1], device=lev.keys.device)
+                return lev.occ & (rows[None] < lev.num[:, None])[..., None]
 
-        masks = [mask_of(lev) for lev in levels]
+            masks = [mask_of(lev) for lev in levels]
+            if tracing():
+                # live against capacity, per level: the padding that every
+                # dense pass over the tiles carries
+                count("live_tiles", torch.stack([lev.num.sum()
+                                                 for lev in levels]))
+                count("active_cells", torch.stack([m.sum() for m in masks]))
+                count("capacity_cells", [m.numel() for m in masks])
 
         # eval fuses the stem's occupancy re-mask into its kernel epilogue
-        x = self.stem(graph.feats0.to(dt), levels[0], tsz[0],
-                      None if train else _mask_epilogue(
-                          cfg.n_planes[0], masks[0], coords.device))
+        with span("stage.stem"):
+            x = self.stem(graph.feats0.to(dt), levels[0], tsz[0],
+                          None if train else _mask_epilogue(
+                              cfg.n_planes[0], masks[0], coords.device))
         skips = []
         for l in range(nlev):
             last = l == nlev - 1
             skip, x = self._stage(
-                self._enc_stage, train, l == 0, x, l, levels[l], masks[l],
-                levels[l if last else l + 1].occ, None if last else links[l],
-                tsz[l], tsz[l if last else l + 1], train)
+                f"enc{l}", self._enc_stage, train, l == 0, x, l, levels[l],
+                masks[l], levels[l if last else l + 1].occ,
+                None if last else links[l], tsz[l],
+                tsz[l if last else l + 1], train)
             if not last:
                 skips.append(skip)
 
         for l in reversed(range(nlev - 1)):
-            x = self._stage(self._dec_stage, train, l == 0, x, skips[l], l,
-                            levels[l], masks[l], masks[l + 1], links[l],
-                            tsz[l], tsz[l + 1], train)
-        logits_tiles = self._stage(self._head_stage, train, True, x,
+            x = self._stage(f"dec{l}", self._dec_stage, train, l == 0, x,
+                            skips[l], l, levels[l], masks[l], masks[l + 1],
+                            links[l], tsz[l], tsz[l + 1], train)
+        logits_tiles = self._stage("head", self._head_stage, train, True, x,
                                    masks[0], train)
 
         # back to blob row order; voxels of spilled tiles (vox_tile == T0)
         # index past the end and read the appended zero row
-        B, T0, cells0, nc = logits_tiles.shape
-        flat = torch.cat([logits_tiles.reshape(B, T0 * cells0, nc),
-                          logits_tiles.new_zeros(B, 1, nc)], 1)
-        vox = torch.where(graph.input_valid,
-                          graph.vox_tile.long() * cells0 + graph.vox_cell,
-                          0).clamp(max=T0 * cells0)
-        logits = torch.gather(flat, 1, vox[..., None].expand(-1, -1, nc))
-        return torch.where(graph.input_valid[..., None], logits, 0.0), diag
+        with span("reorder"):
+            B, T0, cells0, nc = logits_tiles.shape
+            flat = torch.cat([logits_tiles.reshape(B, T0 * cells0, nc),
+                              logits_tiles.new_zeros(B, 1, nc)], 1)
+            vox = torch.where(graph.input_valid,
+                              graph.vox_tile.long() * cells0 + graph.vox_cell,
+                              0).clamp(max=T0 * cells0)
+            logits = torch.gather(flat, 1, vox[..., None].expand(-1, -1, nc))
+            return (torch.where(graph.input_valid[..., None], logits, 0.0),
+                    diag)
 
 
 def resolve_device(device) -> torch.device:

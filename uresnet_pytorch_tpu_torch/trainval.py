@@ -53,6 +53,7 @@ from uresnet_pytorch_tpu_torch.parallel.mesh import (DataMesh,
 from uresnet_pytorch_tpu_torch.utils.checkpoint import (
     checkpoint_path, latest_checkpoint, load_train_state, restore_checkpoint,
     save_checkpoint, train_state)
+from uresnet_pytorch_tpu_torch.utils.timing import span
 from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
                                                      load_jax_variables)
 
@@ -100,6 +101,7 @@ class TrainVal:
         self.model = None
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.step = 0
+        self.evals = 0      # forward() calls: the index of an eval span
 
     def initialize(self, variables: Optional[Mapping] = None) -> None:
         """Build the model and Adam. Parameters come from `variables` (a
@@ -148,17 +150,25 @@ class TrainVal:
         if n > 1 and len(blob["n_voxels"]) != self.cfg.batch_size // n:
             blob = shard_batch(blob, self.mesh)
         use_weight = bool(self.cfg.weight_key) or "weight" in blob
-        return {k: torch.as_tensor(np.asarray(v), device=self.device)
-                for k, v in _batch_from_blob(blob, use_weight).items()}
+        with span("h2d"):
+            return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                    for k, v in _batch_from_blob(blob, use_weight).items()}
 
     def _metrics(self, batch, train: bool) -> Dict[str, torch.Tensor]:
+        """The loss and metrics; in eval also the softmax and the IoU
+        counts (iou_counts only argmaxes, so softmax stands in for
+        logits)."""
         logits, diag = self.model(batch["coords"], batch["values"],
                                   batch["n_voxels"], train=train)
-        metrics = segmentation_loss(
-            logits, batch["label"], batch["n_voxels"],
-            weights=batch.get("weight"), num_class=self.cfg.num_class,
-            return_softmax=not train, mesh=self.mesh)
-        metrics.update(reduce_counts(diag, self.mesh))
+        with span("loss"):
+            metrics = segmentation_loss(
+                logits, batch["label"], batch["n_voxels"],
+                weights=batch.get("weight"), num_class=self.cfg.num_class,
+                return_softmax=not train, mesh=self.mesh)
+            metrics.update(reduce_counts(diag, self.mesh))
+            if not train:
+                metrics.update(iou_counts(metrics["softmax"], batch["label"],
+                                          batch["n_voxels"], self.mesh))
         return metrics
 
     def _sum_gradients(self) -> None:
@@ -174,29 +184,30 @@ class TrainVal:
 
     def train_step(self, blob: Mapping[str, np.ndarray]
                    ) -> Dict[str, torch.Tensor]:
-        batch = self._batch(blob)
-        self.optimizer.zero_grad(set_to_none=True)
-        metrics = self._metrics(batch, train=True)
-        metrics["loss"].backward()
-        self._sum_gradients()
-        self.optimizer.step()
-        commit_batch_moments(self.model)
-        self.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        with span("step", self.step):
+            batch = self._batch(blob)
+            self.optimizer.zero_grad(set_to_none=True)
+            metrics = self._metrics(batch, train=True)
+            with span("backward"):
+                metrics["loss"].backward()
+            with span("optimizer"):
+                self._sum_gradients()
+                self.optimizer.step()
+                commit_batch_moments(self.model)
+            self.step += 1
+            return {k: v.detach() for k, v in metrics.items()}
 
     @torch.no_grad()
     def forward(self, blob: Mapping[str, np.ndarray]
                 ) -> Dict[str, torch.Tensor]:
-        batch = self._batch(blob)
-        if "label" not in batch:      # pure inference without labels
-            batch["label"] = torch.zeros(batch["values"].shape,
-                                         dtype=torch.int32,
-                                         device=self.device)
-        metrics = self._metrics(batch, train=False)
-        # iou_counts only argmaxes, so softmax stands in for logits
-        metrics.update(iou_counts(metrics["softmax"], batch["label"],
-                                  batch["n_voxels"], self.mesh))
-        return metrics
+        with span("step", self.evals):
+            self.evals += 1
+            batch = self._batch(blob)
+            if "label" not in batch:      # pure inference without labels
+                batch["label"] = torch.zeros(batch["values"].shape,
+                                             dtype=torch.int32,
+                                             device=self.device)
+            return self._metrics(batch, train=False)
 
     @property
     def global_step(self) -> int:
