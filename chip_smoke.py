@@ -130,6 +130,21 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
 15. times the config-3 forward with `utils.benchmark.timed_step` and the
    config-4 step with `timed_train` (the port of the reference's timer),
    beside phase 2's and phase 4's medians.
+16. holds the BN kernels (`csrc/norm_act.cu`: stats, apply, bwd reduce,
+   bwd apply) to their plain versions at every BN input of a config-3
+   train forward at batch 8 (level 0 C = 16 and the pair 16+16 up to level
+   4's 80, on their real masks, re-masked; one at a leaky slope), at
+   widths 12, 36, 60 and 256, level 0 in f32, the dense level 0 (8, 16,
+   128^3) channels-last in bf16 and f32, and every BN input of the
+   row-gather engine's config-3 and config-4 train forwards (masked, no
+   re-mask), each at its stated tolerance (`NORM_SUM_RTOL`, one rounding,
+   `NORM_FLIP_SHARE`); times each kernel on `device_ms` beside its byte
+   bound and the plain chain's forward and backward; and checks that the
+   kernels refuse a volume whose channels are not contiguous. Phases 2
+   and 4 assert the BN launches (27 a forward, 180 and 90 a step; the
+   plain path, on which `plain_versions` runs the kernels' plain versions,
+   none), phase 11 the row-gather engine's (45 a forward, 162 and 90 a
+   step).
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -288,7 +303,10 @@ def plain_versions():
         link_assemble_plain, link_parent_plain)
     from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
                                                     halo26_transpose)
+    from uresnet_pytorch_tpu_torch.ops.cuda import norm_act as na_mod
     with mock.patch.object(tile_conv, "halo_conv", hc_mod.halo_conv_plain), \
+            mock.patch.object(na_mod, "_forward", na_mod._forward_plain), \
+            mock.patch.object(na_mod, "_backward", na_mod._backward_plain), \
             mock.patch.object(tile_conv, "link_assemble",
                               link_assemble_plain), \
             mock.patch.object(tile_conv, "link_parent", link_parent_plain), \
@@ -1571,10 +1589,13 @@ def dense_phase(device, counts, reset_counts) -> dict:
     return launches
 
 
-def gather_phase(device, counts, reset_counts, require_a) -> dict:
+def gather_phase(device, counts, reset_counts, require_a,
+                 norm_launches) -> dict:
     """Phase 11: the row-gather engine at config 3 (forward, held against
     the tile engine, kernels A and B) and config 4's shape (a step against
-    the tile engine's, five steps). Returns each path's kernel launches."""
+    the tile engine's, five steps), each with its exact BN launches
+    (`norm_launches()`: none of kernels A-E, the BN kernels at every BN).
+    Returns each path's launches of kernels A-E."""
     from uresnet_pytorch_tpu_torch.models import construct
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
     from uresnet_pytorch_tpu_torch.utils.weights import (init_params,
@@ -1599,6 +1620,8 @@ def gather_phase(device, counts, reset_counts, require_a) -> dict:
         launches["tile_forward_phase11"] = got = counts()
         require(got["halo_conv"] == 37, f"tile forward: {got}")
         require_a(9, got, "the tile forward")
+        require(norm_launches() == {"fwd": NORM_FORWARD_LAUNCHES, "bwd": 0},
+                f"tile forward: norm_act launches {norm_launches()}")
         reset_counts()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -1612,9 +1635,13 @@ def gather_phase(device, counts, reset_counts, require_a) -> dict:
             times.append(start.elapsed_time(end))
         peak = torch.cuda.max_memory_allocated()
         launches["gather_3_forwards"] = got = counts()
+        norm_fwd = norm_launches()
         profile_run(lambda: models["gather"](coords, values, nv),
                     "gather-engine config-3 forward", top=10)
     require(got == none, f"the gather engine launched a kernel: {got}")
+    require(norm_fwd == {"fwd": 3 * NORM_GATHER_FORWARD_LAUNCHES, "bwd": 0},
+            f"expected {NORM_GATHER_FORWARD_LAUNCHES} norm_act launches per "
+            f"gather-engine forward, got {norm_fwd} in 3")
     pad = torch.arange(cfg.max_voxels, device=device)[None] >= nv[:, None]
     require(bool(torch.isfinite(logits).all())
             and bool((logits[pad] == 0).all()),
@@ -1643,6 +1670,13 @@ def gather_phase(device, counts, reset_counts, require_a) -> dict:
     losses, times, _ = timed_steps(tv, blob, 2, 3)
     peak = torch.cuda.max_memory_allocated()
     launches["gather_5_steps"] = got = counts()
+    norm_step = norm_launches()
+    require(norm_step == {k: 5 * v for k, v in
+                          NORM_GATHER_STEP_LAUNCHES.items()},
+            f"expected norm_act launches {NORM_GATHER_STEP_LAUNCHES} per "
+            f"gather-engine step, got {norm_step} in 5")
+    print(f"gather-engine norm_act launches: {norm_fwd} in 3 forwards, "
+          f"{norm_step} in 5 steps")
     print(f"gather-engine losses of 5 steps on one batch: "
           f"{', '.join(f'{l:.6f}' for l in losses)}")
     require(got == none, f"the gather step launched a kernel: {got}")
@@ -2338,6 +2372,304 @@ def timer_phase(device, ms2: float, step_ms: float) -> None:
 
 
 
+# phase 16: kernels norm_act_* (csrc/norm_act.cu) against their plain
+# versions. Each kernel is fed what its plain version is fed (the apply and
+# backward passes the kernels' own sums), so each is held alone:
+# - the sums (stats, bwd reduce): f32 sums in another order over up to
+#   ~1.7e7 rows, |delta| <= NORM_SUM_RTOL * the same sum of |terms| (n
+#   exact);
+# - the outputs (apply, bwd apply): one rounding to the output type at the
+#   reference value, plus the f32 rounding of the pre-activation and of the
+#   gradient's terms: the kernels form x a + b with an FMA and round once,
+#   the plain version rounds each op. Where |v| lies within that rounding
+#   of 0 the two can take act'(v) from opposite sides, so the input
+#   gradient may differ there: at most NORM_FLIP_SHARE of its elements.
+NORM_SUM_RTOL = 1e-5
+NORM_FLIP_SHARE = 1e-6
+# a config-3 forward in eval / a config-4 stage_dots step: 27 BN calls in
+# eval (each block's bn_b runs in conv_a's epilogue), 45 in train, all
+# recomputed; a train call is 2 launches (stats, apply), eval 1, backward 2
+NORM_DENSE_SHAPE = (8, 128, 128, 128, 16)   # config 2's level 0, rows of C
+NORM_FORWARD_LAUNCHES = 27
+NORM_STEP_LAUNCHES = {"fwd": 2 * 45 * 2, "bwd": 2 * 45}
+# the row-gather engine's: no conv epilogue takes a BN, so 45 in eval; its
+# train step recomputes the blocks' 36 BNs (checkpoint), not the down, up
+# and head BNs: 81 forward calls
+NORM_GATHER_FORWARD_LAUNCHES = 45
+NORM_GATHER_STEP_LAUNCHES = {"fwd": 2 * 81, "bwd": 2 * 45}
+
+
+def norm_inputs(cfg, device) -> list:
+    """(name, x, x2, mask, remask, slope) of every distinct BN input of a
+    config-3 train forward at batch 8 on the card (`_bn_flat`'s real masks,
+    re-masked; the second at a leaky slope), then the widths 12/36/60/256
+    on level 0, 2 and 4's masks, level 0 in f32, the dense model's level 0
+    in channels-last memory (bf16 and f32), and last every distinct BN
+    input of the row-gather engine's train forward at config 3 and config
+    4's batch (masked, no re-mask; the first at a leaky slope)."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.models import uresnet_sparse_tiled as tiled
+    seen, cases = set(), []
+    real = tiled.norm_act
+
+    def record_run(cfg, batch, prefix):
+        """Runs a train forward of cfg's model at `batch`, appending each
+        BN input it has not met."""
+        def record(x, mask, *args, **kw):
+            parts = x if isinstance(x, tuple) else (x,)
+            key = (tuple(p.shape for p in parts), kw["remask"])
+            if key not in seen:
+                seen.add(key)
+                widths = "+".join(str(p.shape[-1]) for p in parts)
+                cases.append((f"{prefix}{widths} "
+                              f"{tuple(parts[0].shape[:-1])}", parts[0],
+                              parts[1] if len(parts) > 1 else None, mask,
+                              kw["remask"], 0.0))
+            return real(x, mask, *args, **kw)
+        model = construct("uresnet_sparse")(cfg)
+        blob = event_blob(cfg, batch)
+        coords, values, nv = (torch.from_numpy(blob[k]).to(device)
+                              for k in ("coords", "values", "n_voxels"))
+        with torch.no_grad(), mock.patch.object(tiled, "norm_act", record):
+            model(coords, values, nv, train=True)
+    record_run(cfg, BATCH, "")
+    tile = len(cases)
+    by_rows = sorted({m.numel(): m for _, _, _, m, _, _ in cases}.items(),
+                     reverse=True)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    masks = [m for _, m in by_rows]
+
+    def rand(shape, dtype):
+        return torch.randn(shape, generator=gen, device=device).to(dtype)
+    for c, m in ((12, masks[0]), (36, masks[2]), (60, masks[-1]),
+                 (256, masks[-1])):
+        cases.append((f"width {c} {tuple(m.shape)}",
+                      rand(m.shape + (c,), torch.bfloat16), None, m, True,
+                      0.0))
+    m0 = masks[0]
+    cases.append((f"16 {tuple(m0.shape)} f32",
+                  rand(m0.shape + (16,), torch.float32), None, m0, True, 0.0))
+    for dtype in (torch.bfloat16, torch.float32):
+        vol = rand(NORM_DENSE_SHAPE, dtype)   # channels-last bytes
+        cases.append((f"dense 16 (8, 128^3) {str(dtype)[6:]}", vol, None,
+                      None, False, 0.0))
+    gather = len(cases)
+    for c, batch in ((cfg, BATCH), (config4(), BATCH4)):
+        record_run(dataclasses.replace(c, sparse_engine="gather"), batch,
+                   f"gather b{batch} ")
+    for i in (1, gather):   # a leaky slope on each engine's path
+        cases[i] = cases[i][:5] + (0.1,)
+    require(tile > 1 and len(cases) > gather,
+            f"norm_inputs: {tile} tile-engine and {len(cases) - gather} "
+            "row-gather BN inputs recorded")
+    return cases
+
+
+def check_norm(name, x, x2, mask, remask, slope, device) -> dict:
+    """The four kernels at one shape (train: the sums from the rows, then
+    apply, bwd reduce, bwd apply; eval: apply on running moments), each
+    held to its plain version and timed on `device_ms` beside its byte
+    bound, and the plain torch chain's forward and backward beside them.
+    mask None: the dense BN (every row, f32
+    coefficients); else the masked BN, re-masked (the tile engine) or not
+    (the row-gather engine, whose output and input gradient are nonzero at
+    inactive rows)."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import norm_act as na
+    folded = mask is not None
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    parts = (x,) if x2 is None else (x, x2)
+    C = sum(p.shape[-1] for p in parts)
+
+    def vec(lo, hi):
+        return lo + (hi - lo) * torch.rand(C, generator=gen, device=device)
+    scale, bias = vec(0.5, 1.5), vec(-0.5, 0.5)
+    run_mean, run_var = vec(-0.2, 0.2), vec(0.5, 2.0)
+    dys = [torch.randn(p.shape, generator=gen, device=device).to(p.dtype)
+           for p in parts]
+    dy, dy2 = dys[0], dys[1] if x2 is not None else None
+    es, rows = x.element_size(), x.numel() // x.shape[-1]
+    act_rows = rows if mask is None else int(mask.sum())
+    mask_b = 0 if mask is None else rows
+    # the rows whose x (and dy) apply and the backward read: the active
+    # ones under the re-mask, else every row
+    read_rows = act_rows if remask else rows
+    y = [torch.empty_like(p) for p in parts]
+    dx = [torch.empty_like(p) for p in parts]
+    stats = torch.empty(5, C, dtype=torch.float32, device=device)
+    grads = torch.empty(4, C, dtype=torch.float32, device=device)
+    eps = 1e-4
+    y2, dx2 = (y[1], dx[1]) if x2 is not None else (None, None)
+
+    def launch(kernel, train, out=None, out2=None, d=None, d2=None):
+        na._launch(kernel, x, x2, d, d2, out, out2, mask, scale, bias,
+                   run_mean, run_var, stats if train else None, grads,
+                   slope, eps, train, folded, remask)
+    launch(na.STATS, True)
+    launch(na.APPLY, True, y[0], y2)
+    launch(na.BWD_REDUCE, True, d=dy, d2=dy2)
+    launch(na.BWD_APPLY, True, dx[0], dx2, dy, dy2)
+    torch.cuda.synchronize()
+    res = {}
+    # stats
+    sp = na.stats_plain(x, x2, mask)
+    sabs = na.stats_plain(x.abs(), None if x2 is None else x2.abs(), mask)
+    err = float(((stats[:2] - sp[:2]).abs() / sabs[:2].clamp(min=1e-30)).max())
+    require(err <= NORM_SUM_RTOL and bool(torch.equal(stats[2], sp[2])),
+            f"norm_act stats {name}: rel {err:.3e}, n {float(stats[2, 0])} "
+            f"vs {float(sp[2, 0])}")
+    res["stats"] = err
+    mean, var, raw, cnt = na.moments_plain(stats[:3], run_mean, run_var, True)
+    err_m = float(torch.maximum((stats[3] - mean).abs(),
+                                (stats[4] - var).abs()).max())
+    require(err_m <= 1e-6 * float(torch.maximum(mean.abs(), var).max())
+            + 1e-30,
+            f"norm_act moments {name}: {err_m:.3e}")
+    sh, a, b, inv = na.coef_plain(mean, var, scale, bias, eps, folded,
+                                  x.dtype)
+    ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -23
+    # apply
+    yp = na.apply_plain(x, x2, mask, sh, a, b, slope, remask)
+    worst = 0.0
+    for p, got, ref, (sh_, a_, b_) in zip(parts, y, yp,
+                                          na._slices(x, x2, sh, a, b)):
+        slack = 2.0 ** -22 * ((p.float() - sh_).abs() * a_.abs() + b_.abs())
+        d = (got.float() - ref.float()).abs()
+        bad = int((d > ulp * ref.float().abs() + slack).sum())
+        require(bad == 0, f"norm_act apply {name}: {bad} elements beyond "
+                f"one rounding (max |d| {float(d.max()):.3e})")
+        worst = max(worst, float(d.max()))
+    res["apply"] = worst
+    # bwd reduce: the sums, then d_scale and d_bias from them
+    gp = na.bwd_reduce_plain(dy, dy2, x, x2, mask, sh, a, b, scale, mean,
+                             inv, slope, remask, folded)
+    gabs = []
+    for p, d, (sh_, a_, b_) in zip(parts, dys, na._slices(x, x2, sh, a, b)):
+        g, xf = na._grad_rows(d, p, mask, sh_, a_, b_, slope, remask)
+        gabs.append(torch.stack([na._rows(g.abs()).sum(0),
+                                 na._rows((g * (xf - sh_)).abs()).sum(0)]))
+    gabs = torch.cat(gabs, 1)
+    err = float(((grads[:2] - gp[:2]).abs() / gabs.clamp(min=1e-30)).max())
+    gb, gx = grads[0], grads[1]
+    d_scale = gx * inv + (-(gb * inv)) * mean if folded else gx * inv
+    err_p = float(torch.maximum((grads[2] - d_scale).abs(),
+                                (grads[3] - gb).abs()).max())
+    require(err <= NORM_SUM_RTOL and err_p <= 1e-5 * float(
+        d_scale.abs().max() + gb.abs().max()) + 1e-30,
+        f"norm_act bwd reduce {name}: sums rel {err:.3e}, d_scale/d_bias "
+        f"{err_p:.3e}")
+    res["bwd_reduce"] = err
+    # bwd apply on the kernel's sums
+    c1, c2 = na.stat_grads_plain(grads, scale, mean, raw, cnt, inv, True,
+                                 folded)
+    dxp = na.bwd_apply_plain(dy, dy2, x, x2, mask, sh, a, b, c1, c2, slope,
+                             remask)
+    worst, flips = 0.0, 0
+    for p, d_, got, ref, (a_, c1_, c2_) in zip(
+            parts, dys, dx, dxp, na._slices(x, x2, a, c1, c2)):
+        xf = p.float()
+        slack = 2.0 ** -20 * (d_.float().abs() * a_.abs() + c1_.abs()
+                              + (c2_ * xf).abs())
+        d = (got.float() - ref.float()).abs()
+        flips += int((d > ulp * ref.float().abs() + slack).sum())
+        worst = max(worst, float(d.max()))
+    require(flips <= NORM_FLIP_SHARE * sum(p.numel() for p in parts),
+            f"norm_act bwd apply {name}: {flips} elements beyond one "
+            f"rounding (max |d| {worst:.3e})")
+    res["bwd_apply"], res["act_flips"] = worst, flips
+    # eval apply on the running moments
+    launch(na.APPLY, False, y[0], y2)
+    mean_e, var_e, _, _ = na.moments_plain(None, run_mean, run_var, False)
+    sh_e, a_e, b_e, _ = na.coef_plain(mean_e, var_e, scale, bias, eps,
+                                      folded, x.dtype)
+    yp = na.apply_plain(x, x2, mask, sh_e, a_e, b_e, slope, remask)
+    for p, got, ref, (sh_, a_, b_) in zip(parts, y, yp,
+                                          na._slices(x, x2, sh_e, a_e, b_e)):
+        slack = 2.0 ** -22 * ((p.float() - sh_).abs() * a_.abs() + b_.abs())
+        bad = int(((got.float() - ref.float()).abs()
+                   > ulp * ref.float().abs() + slack).sum())
+        require(bad == 0, f"norm_act eval apply {name}: {bad} elements")
+    # times beside the byte bounds: the mask byte of each row (where it is
+    # read), each active row's x (and dy) once, every output once
+    row_b = C * es
+    nbytes = {"stats": mask_b + act_rows * row_b,
+              "apply": mask_b * remask + read_rows * row_b + rows * row_b,
+              "apply_eval": mask_b * remask + read_rows * row_b
+              + rows * row_b,
+              "bwd_reduce": mask_b * remask + 2 * read_rows * row_b,
+              "bwd_apply": mask_b + 2 * read_rows * row_b + rows * row_b}
+    calls = {"stats": lambda: launch(na.STATS, True),
+             "apply": lambda: launch(na.APPLY, True, y[0], y2),
+             "apply_eval": lambda: launch(na.APPLY, False, y[0], y2),
+             "bwd_reduce": lambda: launch(na.BWD_REDUCE, True, d=dy, d2=dy2),
+             "bwd_apply": lambda: launch(na.BWD_APPLY, True, dx[0], dx2, dy,
+                                         dy2)}
+    res["ms"] = {k: device_ms(fn, launches=20) for k, fn in calls.items()}
+    res["bound_ms"] = {k: v / PEAK_BYTES * 1e3 for k, v in nbytes.items()}
+    # the plain torch chain the models ran, forward and forward + backward
+    leaves = [p.detach().requires_grad_() for p in parts]
+    sc, bi = scale.detach().requires_grad_(), bias.detach().requires_grad_()
+    xin = tuple(leaves) if x2 is not None else leaves[0]
+    if mask is None:   # the dense model's (B, C, *S) view of the rows
+        xin = leaves[0].movedim(-1, 1)
+
+    def chain():
+        out, _ = na.chain_plain(xin, mask, sc, bi, run_mean, run_var,
+                                train=True, remask=remask, folded=folded,
+                                slope=slope, eps=eps, dtype=x.dtype,
+                                cdim=-1 if folded else 1)
+        return out if isinstance(out, tuple) else (out,)
+
+    def chain_bwd():
+        outs = chain()
+        torch.autograd.grad(outs, leaves + [sc, bi],
+                            [d if o.shape == d.shape else d.movedim(-1, 1)
+                             for o, d in zip(outs, dys)])
+    res["chain_fwd_ms"] = time_ms(chain, iters=3)
+    res["chain_fwd_bwd_ms"] = time_ms(chain_bwd, iters=3)
+    res["kernel_fwd_ms"] = res["ms"]["stats"] + res["ms"]["apply"]
+    res["kernel_fwd_bwd_ms"] = res["kernel_fwd_ms"] + res["ms"][
+        "bwd_reduce"] + res["ms"]["bwd_apply"]
+    res["active_rows"], res["rows"] = act_rows, rows
+    print(f"norm_act {name}{'' if remask or mask is None else ' (no re-mask)'}"
+          f": {act_rows}/{rows} rows active; max |d| stats "
+          f"rel {res['stats']:.2e}, apply {res['apply']:.2e}, bwd reduce "
+          f"rel {res['bwd_reduce']:.2e}, bwd apply {res['bwd_apply']:.2e} "
+          f"({flips} act' flips); ms (bound): "
+          + ", ".join(f"{k} {v:.4f} ({res['bound_ms'][k]:.4f})"
+                      for k, v in res["ms"].items())
+          + f"; kernels fwd {res['kernel_fwd_ms']:.3f} / fwd+bwd "
+          f"{res['kernel_fwd_bwd_ms']:.3f} ms vs the plain chain "
+          f"{res['chain_fwd_ms']:.3f} / {res['chain_fwd_bwd_ms']:.3f} ms")
+    return res
+
+
+def norm_act_phase(cfg, device) -> dict:
+    """Phase 16: the BN kernels at every BN shape of the config-3 train
+    forward, the other widths, dtypes, the dense volume and the row-gather
+    engine's inputs (`norm_inputs`, `check_norm`), then the kernels'
+    refusal of a volume whose channels are not contiguous. Returns the
+    results by case."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import norm_act as na
+    out = {}
+    for name, x, x2, mask, remask, slope in norm_inputs(cfg, device):
+        out[name] = check_norm(name, x, x2, mask, remask, slope, device)
+        torch.cuda.empty_cache()
+    C = 16
+    vol = torch.randn(2, C, 8, 8, 8, device=device).to(torch.bfloat16)
+    ones, zeros = (torch.ones(C, device=device),
+                   torch.zeros(C, device=device))
+    try:
+        na.norm_act(vol, None, ones, zeros, zeros, ones, train=True,
+                    remask=False, folded=False, slope=0.0, eps=1e-4,
+                    dtype=torch.bfloat16, cdim=1)
+        refused = False
+    except ValueError:
+        refused = True
+    require(refused, "norm_act took a (B, C, *S) volume in contiguous "
+            "memory on the card: the kernels need channels-last")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -2348,6 +2680,7 @@ def main() -> int:
     from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as dw_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import halo_extend as he_mod
+    from uresnet_pytorch_tpu_torch.ops.cuda import norm_act as na_mod
     from uresnet_pytorch_tpu_torch.ops.cuda import windowed_gather as wg_mod
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
@@ -2362,6 +2695,10 @@ def main() -> int:
         he_mod.launches_by_shape_fwd.clear()
         he_mod.launches_by_shape_bwd.clear()
         wg_mod.launches_by_op.update(dict.fromkeys(wg_mod.launches_by_op, 0))
+        na_mod.launches_fwd = na_mod.launches_bwd = 0
+
+    def norm_launches():
+        return {"fwd": na_mod.launches_fwd, "bwd": na_mod.launches_bwd}
 
     def require_a(n: int, got: dict, what: str) -> None:
         """Kernel A launches once a link op: the graph build's occupancy
@@ -2489,8 +2826,12 @@ def main() -> int:
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
         infer_launches = counts()
+        infer_norm = norm_launches()
         peak = torch.cuda.max_memory_allocated()
-    print(f"launches in 3 forwards: {infer_launches}")
+    print(f"launches in 3 forwards: {infer_launches}; norm_act {infer_norm}")
+    require(infer_norm == {"fwd": NORM_FORWARD_LAUNCHES * 3, "bwd": 0},
+            f"expected {NORM_FORWARD_LAUNCHES} norm_act launches per eval "
+            f"forward, got {infer_norm} in 3")
     require(infer_launches["halo_conv"] == 37 * 3,
             f"expected 37 halo_conv launches per forward, got "
             f"{infer_launches['halo_conv']} in 3")
@@ -2601,8 +2942,13 @@ def main() -> int:
     reset_counts()
     losses, _, _ = timed_steps(tv, blob, 1, 0)
     train_launches = counts()
+    train_norm = norm_launches()
     dw_launches = dict(dw_mod.launches_by_shape)
-    print(f"launches in one stage_dots step: {train_launches}")
+    print(f"launches in one stage_dots step: {train_launches}; norm_act "
+          f"{train_norm}")
+    require(train_norm == NORM_STEP_LAUNCHES,
+            f"expected norm_act launches {NORM_STEP_LAUNCHES} per step (45 "
+            f"BN calls, each recomputed), got {train_norm}")
     # kernel C's launches of that step by shape, as its wrapper counted
     # them: every shape timed in phase 3, and only those
     require(set(dw_launches) == {(t, ci, co) for _, _, t, ci, co
@@ -2911,7 +3257,8 @@ def main() -> int:
     # -- phase 11: the row-gather engine against the tile engine -----------
     t11 = time.perf_counter()
     print(f"phase 11 at {t11 - t_start:.1f} s")
-    gather_launches = gather_phase(device, counts, reset_counts, require_a)
+    gather_launches = gather_phase(device, counts, reset_counts, require_a,
+                                   norm_launches)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s")
 
     # -- phase 12: data parallel at config 5 ------------------------------
@@ -2939,6 +3286,12 @@ def main() -> int:
     print(f"phase 15 at {t15 - t_start:.1f} s")
     timer_phase(device, ms, step_ms)
     print(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # -- phase 16: the BN kernels against their plain versions -------------
+    t16 = time.perf_counter()
+    print(f"phase 16 at {t16 - t_start:.1f} s")
+    norm_res = norm_act_phase(cfg, device)
+    print(f"phase 16: {time.perf_counter() - t16:.1f} s")
 
     paths = {"inference_3_forwards": infer_launches,
              "training_step": train_launches,
@@ -3050,6 +3403,22 @@ def main() -> int:
                               for k, r in ext_branch.items()},
             "ms_x_launches": {run: v[key.upper()][0]
                               for run, v in ext_runs.items()}})
+    n0 = next(iter(norm_res.values()))   # level 0, C = 16, the main path
+    kernels.append({
+        "name": "norm_act", "route": "cuda",
+        "source": "uresnet_pytorch_tpu_torch/csrc/norm_act.cu",
+        "replaces": None,
+        "why": "BN, its activation and re-mask: jnp code XLA fused on the "
+               "TPU, a chain of torch ops on the card",
+        "launches": train_norm, "launches_per_eval_forward":
+            infer_norm["fwd"] // 3,
+        "max_abs_err": max(max(r["apply"], r["bwd_apply"])
+                           for r in norm_res.values()),
+        "ms": n0["ms"], "bound_ms": n0["bound_ms"],
+        "plain_ms": {"fwd": n0["chain_fwd_ms"],
+                     "fwd_bwd": n0["chain_fwd_bwd_ms"]},
+        "library_ms": None,
+        "by_shape": norm_res})
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,10 @@ temporary directory:
   with atol 1e-4 * max|ref|, moments 1e-5), and three steps' losses at
   rtol 1e-4; parameters bitwise equal across the ranks;
 - MaskedBatchNorm alone (and on a pair) against one process on the
-  concatenated batch: output, input gradient and moments at 1e-6;
+  concatenated batch: output, input gradient and moments at 1e-6; the
+  same for the BN operator's path (`ops/cuda/norm_act.py`, its kernels'
+  plain versions, the sums over the group inside the operator), whose
+  ranks' parameter gradients sum to the one process's;
 - the dense model's and the gather engine's DP step against the port's own
   one-process step, at the same bounds as the tile engine's.
 
@@ -49,6 +52,7 @@ from uresnet_pytorch_tpu.trainval import TrainVal as JTrainVal
 from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
 from uresnet_pytorch_tpu_torch.iotools import io_factory
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
+from uresnet_pytorch_tpu_torch.ops.cuda.norm_act import norm_act_via_op
 from uresnet_pytorch_tpu_torch.parallel import (DataMesh, gather_rows,
                                                 launch, make_mesh,
                                                 shard_batch)
@@ -123,6 +127,25 @@ def _bn_run(x, x2, mask, ct):
         out[name] = {"y": y.detach().numpy(),
                      "dx": [t.grad.numpy() for t in ts],
                      "moments": [m.numpy() for m in bn.batch_moments]}
+    # the BN operator's path (its kernels' plain versions on the CPU), its
+    # sums over the process group inside the operator, with the
+    # activation and the re-mask; each rank's d_scale and d_bias its own
+    for name, parts in (("op single", (x,)), ("op pair", (x, x2))):
+        C = sum(p.shape[-1] for p in parts)
+        scale = torch.linspace(0.5, 1.5, C).requires_grad_(True)
+        bias = torch.linspace(-1, 1, C).requires_grad_(True)
+        ts = [torch.from_numpy(p).requires_grad_(True) for p in parts]
+        y, moments = norm_act_via_op(
+            tuple(ts) if len(ts) > 1 else ts[0], torch.from_numpy(mask),
+            scale, bias, torch.zeros(C), torch.ones(C), train=True,
+            remask=True, folded=True, slope=0.1, eps=1e-4,
+            dtype=torch.float32, mesh=make_mesh(devices="cpu"))
+        y = torch.cat(y, -1) if isinstance(y, tuple) else y
+        (y * torch.from_numpy(ct[..., :y.shape[-1]])).sum().backward()
+        out[name] = {"y": y.detach().numpy(),
+                     "dx": [t.grad.numpy() for t in ts],
+                     "moments": [m.numpy() for m in moments],
+                     "dparams": [scale.grad.numpy(), bias.grad.numpy()]}
     return out
 
 
@@ -278,10 +301,16 @@ def test_ranks_agree_bitwise(dp):
                                       err_msg=name)
 
 
-@pytest.mark.parametrize("case", ["single", "pair"])
+@pytest.mark.parametrize("case", ["single", "pair", "op single", "op pair"])
 def test_batch_norm_moments_span_the_ranks(dp, case):
-    """Each rank's half against one process on the whole batch."""
+    """Each rank's half against one process on the whole batch (the
+    operator's parameter gradients: the ranks' sum)."""
     want = dp["bn"][case]
+    if "dparams" in want:
+        for i, w in enumerate(want["dparams"]):
+            got = sum(r["bn"][case]["dparams"][i] for r in dp["ranks"])
+            np.testing.assert_allclose(got, w, rtol=1e-5,
+                                       atol=1e-6 * np.abs(w).max())
     for r, got in enumerate(dp["ranks"]):
         got = got["bn"][case]
         half = slice(2 * r, 2 * r + 2)

@@ -26,6 +26,11 @@ batch axis under GSPMD: `sum(x*m)`, `sum((x*m)^2)` and `sum(m)` are summed
 over the ranks in one differentiable collective (its backward sums the
 cotangents over the ranks), so the running moments are the same on every
 rank. The pair path reduces both halves in that one collective.
+
+The models apply BN, its activation and the tile engine's re-mask through
+`ops/cuda/norm_act.py:norm_act`, one operator with hand-written kernels
+on the card; `forward` here is its plain chain's BN (`masked_bn_plain`),
+for the layers that take BN alone.
 """
 
 from __future__ import annotations
@@ -35,8 +40,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from uresnet_pytorch_tpu_torch.ops.sparse_conv import sum_dtype
-from uresnet_pytorch_tpu_torch.parallel.mesh import all_reduce_sum
+from uresnet_pytorch_tpu_torch.ops.cuda.norm_act import masked_bn_plain
 
 
 class MaskedBatchNorm(nn.Module):
@@ -68,28 +72,12 @@ class MaskedBatchNorm(nn.Module):
         read in train mode only. Returns BN(x) in x's dtype (a pair for a
         pair)."""
         pair = isinstance(x, tuple)
-        parts = x if pair else (x,)
-        mean = var = None
-        if train:
-            acc = sum_dtype(parts[0].dtype)
-            m = mask[..., None].to(acc)
-            red = tuple(range(parts[0].dim() - 1))
-            xfs = [p.to(acc) * m for p in parts]
-            s1 = torch.cat([xf.sum(red) for xf in xfs])
-            s2 = torch.cat([(xf * xf).sum(red) for xf in xfs])
-            s1, s2, n = all_reduce_sum(self.mesh, s1, s2, m.sum(), grad=True)
-            count = n.clamp(min=1.0)
-            mean = s1 / count
-            var = torch.maximum(s2 / count - mean * mean,
-                                torch.zeros_like(mean))
-            self.batch_moments = (mean.detach(), var.detach())
-        a, b = self.affine(parts[0].dtype, mean, var)
-        out, lo = [], 0
-        for p in parts:
-            hi = lo + p.shape[-1]
-            out.append(p * a[lo:hi] + b[lo:hi])
-            lo = hi
-        return tuple(out) if pair else out[0]
+        out, moments = masked_bn_plain(x if pair else (x,), mask, self.scale,
+                                       self.bias, self.mean, self.var,
+                                       self.epsilon, self.mesh, train)
+        if moments is not None:
+            self.batch_moments = moments
+        return out if pair else out[0]
 
     @torch.no_grad()
     def commit(self) -> None:

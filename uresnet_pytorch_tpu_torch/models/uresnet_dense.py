@@ -43,8 +43,8 @@ from uresnet_pytorch_tpu_torch.models import register_model
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
 from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
     _DTYPES, _in_span, _lecun_normal, resolve_device)
+from uresnet_pytorch_tpu_torch.ops.cuda.norm_act import norm_act
 from uresnet_pytorch_tpu_torch.ops.voxelize import gather_voxels, voxelize
-from uresnet_pytorch_tpu_torch.parallel.mesh import all_reduce_sum
 from uresnet_pytorch_tpu_torch.utils.timing import span
 
 
@@ -52,50 +52,31 @@ def _channels_last(dim: int) -> torch.memory_format:
     return torch.channels_last_3d if dim == 3 else torch.channels_last
 
 
-class BatchNorm(MaskedBatchNorm):
-    """flax's `nn.BatchNorm(dtype=float32)` over (B, C, *S): every cell
-    counts, on every rank of the module's data mesh. Keeps
-    MaskedBatchNorm's parameters, buffers, mesh and commit."""
-
-    def forward(self, x, train: bool = False):
-        red = (0,) + tuple(range(2, x.dim()))
-        xf = x.float()
-        if train:
-            if self.mesh is None or self.mesh.group is None:
-                mean = xf.mean(red)
-                var = ((xf * xf).mean(red) - mean * mean).clamp(min=0.0)
-            else:   # over the whole sharded batch, as flax's BN under GSPMD
-                s1, s2, n = all_reduce_sum(
-                    self.mesh, xf.sum(red), (xf * xf).sum(red),
-                    torch.tensor(float(xf.numel() // xf.shape[1]),
-                                 device=x.device), grad=True)
-                mean = s1 / n
-                var = (s2 / n - mean * mean).clamp(min=0.0)
-            self.batch_moments = (mean.detach(), var.detach())
-        else:
-            mean, var = self.mean, self.var
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        return (xf - mean.view(shape)) * mul.view(shape) \
-            + self.bias.view(shape)
-
-
 class BNAct(nn.Module):
-    """BatchNorm, LeakyReLU (ReLU at slope 0), then the compute dtype."""
+    """flax's `nn.BatchNorm(dtype=float32)` over (B, C, *S), every cell
+    counting, on every rank of its data mesh; LeakyReLU (ReLU at slope 0);
+    then the compute dtype: one operator (`ops/cuda/norm_act.py:norm_act`,
+    `folded=False`: the plain chain on the CPU, the kernels on the card,
+    which take the channels-last volume as rows of channels). Its
+    parameters, buffers, mesh and commit are MaskedBatchNorm's."""
 
     def __init__(self, cfg: URESNetConfig, channels: int):
         super().__init__()
         self.cfg = cfg
-        self.BatchNorm_0 = BatchNorm(channels, epsilon=cfg.bn_eps,
-                                     momentum=cfg.bn_momentum)
+        self.BatchNorm_0 = MaskedBatchNorm(channels, epsilon=cfg.bn_eps,
+                                           momentum=cfg.bn_momentum)
 
     def forward(self, x, train: bool = False):
+        bn = self.BatchNorm_0
         with span("norm"):
-            y = self.BatchNorm_0(x, train)
-            s = self.cfg.leaky_relu_slope
-            # flax's where(y >= 0, y, s*y): its gradient at 0 is 1
-            y = torch.where(y >= 0, y, s * y) if s > 0 else torch.relu(y)
-            return y.to(_DTYPES[self.cfg.compute_dtype])
+            y, moments = norm_act(
+                x, None, bn.scale, bn.bias, bn.mean, bn.var, train=train,
+                remask=False, folded=False,
+                slope=self.cfg.leaky_relu_slope, eps=bn.epsilon,
+                dtype=_DTYPES[self.cfg.compute_dtype], mesh=bn.mesh, cdim=1)
+        if moments is not None:
+            bn.batch_moments = moments
+        return y
 
 
 class Conv(nn.Module):

@@ -51,6 +51,7 @@ from torch.utils.checkpoint import (checkpoint,
 
 from uresnet_pytorch_tpu_torch.config import URESNetConfig
 from uresnet_pytorch_tpu_torch.models.norm import MaskedBatchNorm
+from uresnet_pytorch_tpu_torch.ops.cuda.norm_act import norm_act
 from uresnet_pytorch_tpu_torch.ops.tile_conv import (
     downsample_conv_tiled, submanifold_conv_bn_act_tiled,
     submanifold_conv_tiled, upsample_conv_tiled)
@@ -90,27 +91,27 @@ class BNAct(nn.Module):
         """The folded eval affine for a fused conv epilogue."""
         return self.MaskedBatchNorm_0.affine(_DTYPES[self.cfg.compute_dtype])
 
-    def forward(self, x, mask=None, train: bool = False):
-        y = self.MaskedBatchNorm_0(x, mask, train)
-        s = self.cfg.leaky_relu_slope
-        dt = _DTYPES[self.cfg.compute_dtype]
-
-        def act(v):
-            # the reference's where(v >= 0, v, s*v): its gradient at 0 is 1
-            v = torch.where(v >= 0, v, s * v) if s > 0 else torch.relu(v)
-            return v.to(dt)
-        return tuple(act(p) for p in y) if isinstance(y, tuple) else act(y)
+    def forward(self, x, mask=None, train: bool = False,
+                remask: bool = False):
+        """act(BN(x)) in the compute dtype, times the mask with `remask`
+        (`ops/cuda/norm_act.py:norm_act`: the plain chain on the CPU, the
+        kernels on the card)."""
+        bn = self.MaskedBatchNorm_0
+        y, moments = norm_act(
+            x, mask, bn.scale, bn.bias, bn.mean, bn.var, train=train,
+            remask=remask, folded=True, slope=self.cfg.leaky_relu_slope,
+            eps=bn.epsilon, dtype=_DTYPES[self.cfg.compute_dtype],
+            mesh=bn.mesh)
+        if moments is not None:
+            bn.batch_moments = moments
+        return y
 
 
 def _bn_flat(bnact: BNAct, y, mask, train: bool = False):
     """BNAct, then re-zero inactive cells (the BN bias would leak nonzeros
-    into the dense tile interior)."""
+    into the dense tile interior), in one operator."""
     with span("norm"):
-        out = bnact(y, mask, train)
-        if isinstance(out, tuple):
-            occ = mask[..., None].to(out[0].dtype)
-            return tuple(p * occ for p in out)
-        return out * mask[..., None].to(out.dtype)
+        return bnact(y, mask, train, remask=True)
 
 
 class SMConvTile(nn.Module):

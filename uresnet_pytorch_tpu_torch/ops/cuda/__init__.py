@@ -47,6 +47,9 @@ _SIGNATURES = {
     "link_parent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_extend": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
     "halo_transpose": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    "norm_act_vector": [_I, _I, _I],
+    "norm_act_launch": [_I] + [_P] * 6 + [_I, _I, ctypes.c_longlong]
+    + [_P] * 9 + [_I, ctypes.c_float, ctypes.c_float] + [_I] * 4 + [_P],
 }
 
 _lib = None
