@@ -40,6 +40,10 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     cell = load_cell(args.workload)
+    if cell.chips > 1:
+        print(f"{cell.name} runs over {cell.chips} cards: its traced run "
+              f"is `run.py --trace 1`", file=sys.stderr)
+        return 2
     torch.set_num_threads(4)
     run = harness.Run(cell, args.seed)
     run.setup()

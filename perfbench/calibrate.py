@@ -2,17 +2,23 @@
 card at the cell's own size, many seeds in one process:
 
     python3 perfbench/calibrate.py --workload <name> --seeds 1,2,3
-        [--control-seeds 4,5,6] [--fault-seeds 7,8,9] [--seconds 3]
+        [--control-seeds 4,5,6] [--fault-seeds 7,8,9]
+        [--exchange-seeds 10,11,12] [--seconds 3]
         [--out chiprun_out/calibrate.jsonl]
 
 - program: the cell's timed path (a short window at the cell's own load
   for inference; the first training steps, which need no window) against
   the float32 reference: the lower readings;
 - control: the reference computed in float8 e4m3 (the precision below the
-  configurations' bfloat16) in the program's place: the upper readings;
+  configurations' bfloat16) in the program's place: the upper readings
+  (no program runs, so one card serves a cell over several: the
+  reference runs the global batch);
 - faults (training cells): the reference with half of each batch left
-  out, the loss's mean over the rest; a step that leaves the state
-  unchanged reads 1 by the gradient and change gaps and needs no run.
+  out, the loss's mean over the rest; over several cards, the reference
+  with the exchange between cards left out: rank 0's shard of each batch
+  alone (its BN moments, loss and gradient over its own events); a step
+  that leaves the state unchanged reads 1 by the gradient and change gaps
+  and needs no run.
 
 One JSON line per reading goes to `--out`; the benchmark's own runs never
 run the control or the faults.
@@ -39,6 +45,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seeds", type=_seeds, default=[])
     ap.add_argument("--control-seeds", type=_seeds, default=[])
     ap.add_argument("--fault-seeds", type=_seeds, default=[])
+    ap.add_argument("--exchange-seeds", type=_seeds, default=[])
     ap.add_argument("--seconds", type=float, default=3.0)
     ap.add_argument("--out", default="chiprun_out/calibrate.jsonl")
     args = ap.parse_args(argv)
@@ -65,13 +72,13 @@ def main(argv=None) -> int:
 
     jobs = ([("program", s) for s in args.seeds]
             + [("control", s) for s in args.control_seeds]
-            + [("half_batch", s) for s in args.fault_seeds])
+            + [("half_batch", s) for s in args.fault_seeds]
+            + [("exchange", s) for s in args.exchange_seeds])
     for kind, seed in jobs:
         t0 = time.perf_counter()
         run = harness.Run(cell, seed, "cuda")
         if kind == "program":
-            run.setup()
-            run.window(args.seconds, trace=False)
+            harness.measure(run, args.seconds, trace=False)
             run.free_program()
             detail = {}
             emit(kind, seed, run.numbers(run.reference_run(), detail), t0,
@@ -81,6 +88,10 @@ def main(argv=None) -> int:
             run.make_inputs()
             n = harness.CHECKED_STEPS
             ref = run.reference_run_steps(n)
+            if kind == "exchange":
+                rows = run.batch // cell.chips
+                run.blobs = [{k: v[:rows] for k, v in b.items()}
+                             for b in run.blobs]
             bad = run.reference_run_steps(
                 n, quant=Quant("fp8") if kind == "control" else None,
                 half_batch=kind == "half_batch")

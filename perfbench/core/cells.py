@@ -6,10 +6,16 @@ reports. Each of these sits in a file of its own, found by name:
     perfbench/traffic/<traffic>.json
     perfbench/limits/<workload>.json
     perfbench/metrics/<per-layer metric>.py
+    the plain reference: the file the configuration's `reference` key
+        names, or else the module of its model's name (`reference/`)
+
+Every path is taken from the root of the checkout the cell is loaded
+from, so a cell of files under another root runs from there.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
 from dataclasses import dataclass
 from pathlib import Path
@@ -22,6 +28,16 @@ BENCH = ROOT / "perfbench"
 def manifest(root: Path = ROOT) -> dict:
     with open(root / "BENCHMARK.json") as f:
         return json.load(f)
+
+
+def load_module(path: Path, prefix: str):
+    """The Python file at `path` as a module, named from `prefix` and the
+    file's stem."""
+    spec = importlib.util.spec_from_file_location(
+        prefix + path.stem.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _load_json(path: Path) -> dict:
@@ -40,10 +56,17 @@ class Cell:
     limits: Dict[str, float]
     end_to_end: List[dict]      # the end-to-end metrics this cell reports
     per_layer: List[dict]       # the per-layer metrics this cell reports
+    root: Path = ROOT           # the checkout its files are found in
 
     @property
     def mode(self) -> str:
         return self.traffic["mode"]
+
+    @property
+    def reference(self):
+        """The configuration's plain reference module (loaded anew)."""
+        from perfbench import reference
+        return reference.module_of(self.config, self.root)
 
 
 def _reports(metric: dict, cell: str) -> bool:
@@ -79,4 +102,4 @@ def load_cell(name: str, root: Path = ROOT,
                  if (name in m["workloads"] if "workloads" in m
                      else m["moves"] in reported)]
     return Cell(name, int(w["chips"]), model, conf_file,
-                w["traffic"], traffic, limits, e2e, per_layer)
+                w["traffic"], traffic, limits, e2e, per_layer, Path(root))

@@ -7,12 +7,17 @@ The program under test is `uresnet_pytorch_tpu_torch`, driven through
 it. The loop is closed: the next batch goes in when the last returns (an
 inference batch returns when its probabilities are on the host; a
 training step fetches nothing until the window's one closing sync).
+
+A cell over several cards runs one `Run` a card, each a rank of the
+port's data mesh (`core/ranks.py`): `rank` and `world` say which, and the
+training window then runs a number of steps fixed at set-up, the same on
+every rank, between two barriers.
 """
 
 from __future__ import annotations
 
 import gc
-import importlib.util
+import math
 import time
 from types import SimpleNamespace
 from typing import Dict, List, Optional
@@ -21,8 +26,8 @@ import numpy as np
 import torch
 
 from perfbench import reference
-from perfbench.core import check, events, flops, peaks
-from perfbench.core.cells import BENCH, Cell
+from perfbench.core import check, events, peaks
+from perfbench.core.cells import ROOT, Cell, load_module
 from perfbench.core.trace import Trace, profiled
 from perfbench.core.weights import as_variables, make_params
 from perfbench.reference.common import Quant, no_tf32
@@ -48,26 +53,31 @@ def flags(met: dict) -> torch.Tensor:
     return torch.stack([met[k].long() for k in COUNTERS])
 
 
-def load_reader(name: str):
-    """The per-layer metric `name`'s reader, `perfbench/metrics/<name>.py`."""
-    path = BENCH / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(
-        "perfbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+def load_reader(name: str, root=ROOT):
+    """The per-layer metric `name`'s reader, `perfbench/metrics/<name>.py`
+    under the checkout `root`."""
+    return load_module(root / "perfbench" / "metrics" / f"{name}.py",
+                       "perfbench_metric_").read
 
 
 class Run:
     def __init__(self, cell: Cell, seed: int, device="cuda",
-                 t_start: Optional[float] = None):
+                 t_start: Optional[float] = None, rank: int = 0,
+                 world: int = 1):
         self.cell, self.seed = cell, int(seed)
         self.device = torch.device(device)
         self.cuda = self.device.type == "cuda"
         self.t_start = time.perf_counter() if t_start is None else t_start
         self.model, self.traffic = cell.model, cell.traffic
+        self.ref = cell.reference
         self.batch = int(self.traffic["batch"])
-        self.sparse = self.model["model_name"] == "uresnet_sparse"
+        self.rank, self.world = rank, world
+        # the rows of each global blob this rank's program runs
+        per = self.batch // world
+        self.rows = range(rank * per, (rank + 1) * per)
+        # the program runs the tile engine: its kernel library, launch
+        # counters and graph build
+        self.sparse = self.model.get("sparse_engine") == "tile"
         self.tv = None
 
     def sync(self) -> None:
@@ -78,29 +88,46 @@ class Run:
     # set-up
     # ------------------------------------------------------------------
 
-    def make_inputs(self) -> None:
-        """The event pool, the batches in the seed's order, and the
-        weights, all from the seed."""
+    def draw_pool(self) -> list:
+        """The event pool of the seed."""
         m, tr = self.model, self.traffic
-        self.pool = events.make_pool(
+        return events.make_pool(
             self.seed, int(tr["pool_events"]), m["spatial_size"],
             m["data_dim"], int(tr["mean_voxels"]),
             workers=int(tr.get("pool_workers", 0)),
             max_points=tr.get("max_points"))
+
+    def make_events(self, pool: Optional[list] = None) -> None:
+        """The event pool (drawn here unless given), and its batches in
+        the seed's order."""
+        m = self.model
+        self.pool = self.draw_pool() if pool is None else pool
         self.order = events.batch_order(self.seed, len(self.pool), self.batch,
                                         EPOCHS_PREBUILT)
         cw = self.cell.config.get("class_weights")
         self.blobs = [events.blob_of([self.pool[i] for i in idx],
                                      m["max_voxels"], m["data_dim"], cw)
                       for idx in self.order]
-        self.spec = reference.module_of(m).param_spec(m)
+
+    def make_weights(self) -> None:
+        """The weights, on the run's device from the seed."""
+        self.spec = self.ref.param_spec(self.model)
         self.params = make_params(self.spec, self.seed, self.device)
+
+    def make_inputs(self, pool: Optional[list] = None) -> None:
+        """The events, their batches and the weights, all from the seed."""
+        self.make_events(pool)
+        self.make_weights()
 
     def build_program(self) -> None:
         from uresnet_pytorch_tpu_torch.config import URESNetConfig
         from uresnet_pytorch_tpu_torch.trainval import TrainVal
+        # a rank of a data mesh on the card: rank r on cuda:r, as the
+        # CLI's --gpus 0,1,... runs it
+        gpus = tuple(range(self.world)) if self.world > 1 and self.cuda \
+            else ()
         self.cfg = URESNetConfig(**self.model, batch_size=self.batch,
-                                 train=self.cell.mode == "train")
+                                 train=self.cell.mode == "train", gpus=gpus)
         if self.sparse and self.cuda:
             from uresnet_pytorch_tpu_torch.ops import cuda as kernels
             kernels.library()
@@ -117,6 +144,9 @@ class Run:
         losses, grads = [], None
         n = CHECKED_STEPS
         for i in range(n):
+            if i == 1 and self.world > 1:
+                self.sync()
+                t1 = time.perf_counter()
             met = tv.train_step(self.blobs[i])
             self._bad_steps(flags(met))
             losses.append(met["loss"].detach().clone())
@@ -131,9 +161,18 @@ class Run:
         self.prog_train = {"losses": [float(x) for x in losses],
                            "grads": grads, "state": state}
         self.next = n
+        if self.world > 1:
+            # the ranks' slowest time a step, which fixes the window's
+            # steps on every rank alike
+            self.sync()
+            t = torch.tensor([(time.perf_counter() - t1) / (n - 1)],
+                             dtype=torch.float64, device=tv.mesh.device)
+            torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MAX,
+                                         group=tv.mesh.group)
+            self.step_s = float(t)
 
-    def setup(self) -> None:
-        self.make_inputs()
+    def setup(self, pool: Optional[list] = None) -> None:
+        self.make_inputs(pool)
         if self.cuda:
             torch.cuda.reset_peak_memory_stats(self.device)
         self.build_program()
@@ -152,8 +191,17 @@ class Run:
     # the window
     # ------------------------------------------------------------------
 
+    def barrier(self) -> None:
+        """Returns when every rank has reached it and its card is idle."""
+        self.sync()
+        x = torch.zeros(1, device=self.tv.mesh.device)
+        torch.distributed.all_reduce(x, group=self.tv.mesh.group)
+        self.sync()
+
     def window(self, seconds: float, trace: bool) -> SimpleNamespace:
         before = port_counters() if self.sparse else None
+        if self.world > 1:
+            self.barrier()
         with profiled(trace, self.cuda) as prof:
             if self.cell.mode == "train":
                 w = self._train_window(seconds)
@@ -206,21 +254,29 @@ class Run:
                                counters=dict(zip(COUNTERS, counts.tolist())))
 
     def _train_window(self, seconds: float) -> SimpleNamespace:
+        """Steps until `seconds` have passed; over several ranks, the
+        steps that take that long at set-up's time a step, then the
+        closing barrier: every rank runs the same steps."""
         tv, n = self.tv, len(self.blobs)
+        steps = (max(1, math.ceil(seconds / self.step_s))
+                 if self.world > 1 else None)
         ran = []
         self._counts.zero_()
         self._bad.zero_()
         t0 = time.perf_counter()
         t_end = t0 + seconds
-        while time.perf_counter() < t_end:
+        while (len(ran) < steps if steps is not None
+               else time.perf_counter() < t_end):
             bi = self.next % n
             self.next += 1
             self._bad_steps(flags(tv.train_step(self.blobs[bi])))
             ran.append(bi)
+        if steps is not None:
+            self.barrier()
         self.sync()
         seconds_run = time.perf_counter() - t0
         return SimpleNamespace(seconds=seconds_run, batches=len(ran), ran=ran,
-                               times=None,
+                               times=None, t0=t0,
                                failed=int(self._bad) * self.batch,
                                counters=dict(zip(COUNTERS,
                                                  self._counts.cpu().tolist())))
@@ -239,33 +295,22 @@ class Run:
     # ------------------------------------------------------------------
 
     def work(self, ran: List[int]) -> dict:
-        """The model work of the batches run: FLOPs, and the least time
-        of the convolutions the roofline shares read, three times a
-        forward's in training."""
-        m = self.model
-        planes = reference.sparse.planes(m)
+        """The model work of this rank's events of the batches run, from
+        the reference module's `work`: FLOPs, and the least time of the
+        convolutions the roofline shares read, three times a forward's in
+        training."""
         mult = 3.0 if self.cell.mode == "train" else 1.0
         tot = {"flops": 0.0, "sm_bound_s": 0.0, "dense_conv_bound_s": 0.0}
-        if not self.sparse:
-            d = flops.dense_work(m["spatial_size"], planes, m["reps"],
-                                 m["num_class"])
-            per = self.batch * mult
-            tot["flops"] = d["flops"] * per * len(ran)
-            tot["dense_conv_bound_s"] = d["conv_bound_s"] * per * len(ran)
-            return tot
         cache: Dict[int, dict] = {}
         for bi in ran:
             if bi not in cache:
                 blob = self.blobs[bi]
                 coords = [torch.as_tensor(
                     blob["coords"][b, :int(blob["n_voxels"][b])],
-                    device=self.device) for b in range(self.batch)]
-                sites, pairs = flops.level_counts(
-                    coords, m["spatial_size"], m["uresnet_num_strides"])
-                cache[bi] = flops.sparse_work(sites, pairs, planes, m["reps"],
-                                              m["num_class"])
-            tot["flops"] += cache[bi]["flops"] * mult
-            tot["sm_bound_s"] += cache[bi]["sm_bound_s"] * mult
+                    device=self.device) for b in self.rows]
+                cache[bi] = self.ref.work(self.model, coords)
+            for k in tot:
+                tot[k] += cache[bi][k] * mult
         return tot
 
     def graph_build_ms(self) -> Optional[float]:
@@ -298,14 +343,14 @@ class Run:
         breakdown) from the traced window."""
         tr = Trace(w.prof)
         ctx = SimpleNamespace(mode=self.cell.mode, batch=self.batch,
-                              steps=w.batches, trace=tr,
+                              steps=w.batches, trace=tr, prof=w.prof,
                               work=self.work(w.ran),
                               graph_build_ms=self.graph_build_ms,
                               peak_flops=peaks.PEAK_FLOPS,
                               peak_bytes=peaks.PEAK_BYTES)
         out = {}
         for m in self.cell.per_layer:
-            v = load_reader(m["name"])(ctx)
+            v = load_reader(m["name"], self.cell.root)(ctx)
             if v is not None:
                 out[m["name"]] = {"value": float(v), "unit": m["unit"]}
         breakdown = {"device_ops": tr.top_ops(), "idle_gaps": tr.idle_gaps()}
@@ -328,14 +373,14 @@ class Run:
             return self.reference_run_steps(len(self.prog_train["losses"]),
                                             quant)
         with no_tf32():
-            return [reference.infer(self.model, self.params, self.blobs[bi],
-                                    self.device, quant)
+            return [self.ref.infer(self.model, self.params, self.blobs[bi],
+                                   self.device, quant)
                     for bi, _ in self.kept]
 
     def reference_run_steps(self, n: int, quant: Optional[Quant] = None,
                             half_batch: bool = False) -> dict:
         with no_tf32():
-            return reference.train_steps(self.model, self.params,
+            return reference.train_steps(self.ref, self.model, self.params,
                                          self.blobs[:n], self.device, quant,
                                          half_batch)
 
@@ -365,6 +410,24 @@ class Run:
         return out
 
 
+def measure(run: Run, seconds: float, trace: bool,
+            rank_setup=None) -> SimpleNamespace:
+    """Set-up and the window of a run: in this process, or one rank
+    process a card where the cell takes several (`core/ranks.py`, which
+    runs `rank_setup` first in each rank). The window carries `setup_s`
+    and, with tracing, `layers` (`Run.per_layer`'s result)."""
+    if run.cell.chips > 1:
+        from perfbench.core import ranks
+        return ranks.measure(run, seconds, trace, rank_setup)
+    run.setup()
+    setup_s = time.perf_counter() - run.t_start
+    w = run.window(seconds, trace)
+    w.setup_s = setup_s
+    if trace:
+        w.layers = run.per_layer(w)
+    return w
+
+
 def p95_ms(times: List[float]) -> float:
     return float(np.percentile(np.asarray(times) * 1e3, 95))
 
@@ -377,14 +440,15 @@ def end_to_end(cell: Cell, w: SimpleNamespace, setup_s: float
     if cell.mode == "infer":
         known["infer_events_per_s"] = events_done / w.seconds
         known["infer_batch_p95_ms"] = p95_ms(w.times)
+    else:
+        known["train_events_per_s"] = events_done / w.seconds
     out = {}
     for m in cell.end_to_end:
-        # a training cell's rate, under whichever name of that kind the
-        # cell reports (a cell may have a rate and a bound of its own)
-        if cell.mode == "train" and m["name"].endswith("train_events_per_s"):
-            known[m["name"]] = events_done / w.seconds
-        if m["name"] not in known:
+        # each quantity under whichever name of its kind the cell reports
+        # (a cell may have a metric and a bound of its own)
+        kind = [k for k in known if m["name"].endswith(k)]
+        if not kind:
             raise KeyError(f"{cell.name}: the harness does not measure "
                            f"{m['name']!r}")
-        out[m["name"]] = {"value": known[m["name"]], "unit": m["unit"]}
+        out[m["name"]] = {"value": known[kind[0]], "unit": m["unit"]}
     return out

@@ -26,7 +26,6 @@ time. A path is the tuple of span names from the outermost in.
 
 from __future__ import annotations
 
-import sys
 from collections import Counter, defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
@@ -230,23 +229,13 @@ def records(prof) -> Tuple[List[Op], List[Row]]:
     return ops, rows
 
 
-def _window_profiler(ctx):
-    """The window's profiler: `ctx.prof`, or else the window object `w`
-    of the harness's `Run.per_layer`, which calls the readers."""
-    prof = getattr(ctx, "prof", None)
-    f = sys._getframe(1)
-    while prof is None and f is not None:
-        w = f.f_locals.get("w") if f.f_code.co_name == "per_layer" else None
-        prof = getattr(w, "prof", None)
-        f = f.f_back
-    return prof
-
-
 def of(ctx) -> Optional[Attribution]:
-    """The window's attribution, built once and kept on the readers'
-    context; None where the program left no `uresnet.step` span."""
+    """The attribution of the window's profiler (`ctx.prof`, which
+    `Run.per_layer` hands the readers), built once and kept on the
+    readers' context; None where the program left no `uresnet.step`
+    span."""
     if not hasattr(ctx, "spans"):
-        prof = _window_profiler(ctx)
+        prof = ctx.prof
         ctx.spans = None
         if prof is not None:
             tr = ctx.trace

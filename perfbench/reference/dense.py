@@ -166,6 +166,21 @@ def _gather(logits: torch.Tensor, flats: list) -> torch.Tensor:
     return torch.cat([per[i][:, f].T for i, f in enumerate(flats)])
 
 
+def net(model: dict, quant: Optional[Quant] = None) -> DenseUResNet:
+    return DenseUResNet(model, quant)
+
+
+def work(model: dict, coords: List[torch.Tensor]) -> dict:
+    """A forward's FLOPs over as many dense events as `coords` holds, and
+    the least time of its convolutions (`core/flops.py`)."""
+    from perfbench.core import flops     # flops imports the sparse module
+    d = flops.dense_work(model["spatial_size"], planes(model), model["reps"],
+                         model["num_class"])
+    n = len(coords)
+    return {"flops": d["flops"] * n, "sm_bound_s": 0.0,
+            "dense_conv_bound_s": d["conv_bound_s"] * n}
+
+
 def infer(model: dict, params: dict, blob: dict, device,
           quant: Optional[Quant] = None) -> torch.Tensor:
     rows = range(len(blob["n_voxels"]))

@@ -276,6 +276,10 @@ def voxel_rows(blob: dict, key: str, device, rows=None) -> torch.Tensor:
                                       device=device) for b in rows])
 
 
+def net(model: dict, quant: Optional[Quant] = None) -> SparseUResNet:
+    return SparseUResNet(model, quant)
+
+
 def infer(model: dict, params: dict, blob: dict, device,
           quant: Optional[Quant] = None) -> torch.Tensor:
     """Eval-mode logits of every valid voxel of the blob, events in
@@ -284,6 +288,19 @@ def infer(model: dict, params: dict, blob: dict, device,
                    model["uresnet_num_strides"])
     with torch.no_grad():
         return SparseUResNet(model, quant).forward(geo, params, train=False)
+
+
+def work(model: dict, coords: List[torch.Tensor]) -> dict:
+    """A forward's sparse-ideal FLOPs over the events whose voxel
+    coordinates are given, and the least time of its submanifold
+    convolutions (`core/flops.py`)."""
+    from perfbench.core import flops     # flops counts sites with Level
+    sites, pairs = flops.level_counts(coords, model["spatial_size"],
+                                      model["uresnet_num_strides"])
+    w = flops.sparse_work(sites, pairs, planes(model), model["reps"],
+                          model["num_class"])
+    return {"flops": w["flops"], "sm_bound_s": w["sm_bound_s"],
+            "dense_conv_bound_s": 0.0}
 
 
 def loss_and_grads(net, model: dict, params: dict, blob: dict, device,

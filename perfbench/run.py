@@ -3,9 +3,12 @@
     python3 perfbench/run.py --workload <name> --seed <n> --seconds <s>
                              --trace <0|1>
 
-runs one cell of `BENCHMARK.json` in one process: set-up (events, weights,
-the program, warm-up), the measured window, then the comparison with the
-plain reference. It prints the port's launch and tile-engine counters and
+runs one cell of `BENCHMARK.json`: set-up (events, weights, the program,
+warm-up), the measured window, then the comparison with the plain
+reference. A cell on one card runs in this process; a cell over several
+runs one rank process a card (`core/ranks.py`), and this process, the
+parent, prints the result and runs the reference once they have exited.
+It prints the port's launch and tile-engine counters and
 the card's state, then, as its last line on standard output, one JSON
 object: `correct`, `attempted`, `failed`, `metrics` (the cell's
 end-to-end metrics, or with `--trace 1` its per-layer ones), `device`,
@@ -14,7 +17,8 @@ with its limit, which also end standard error.
 
 It exits non-zero, printing no result, where there is no CUDA card or
 fewer cards than the cell asks for, and where JAX or the JAX package has
-been loaded by the time the window closes.
+been loaded by the time the window closes, in this process or in a rank
+(`core/guard.py`).
 """
 
 import time
@@ -37,16 +41,10 @@ os.environ.setdefault("TORCH_EXTENSIONS_DIR", str(_CACHE / "torch_extensions"))
 os.environ.setdefault("TRITON_CACHE_DIR", str(_CACHE / "triton"))
 os.environ.setdefault("USE_FLAX", "0")
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "uresnet_pytorch_tpu")
+from perfbench.core.guard import ForbiddenModules, forbidden_modules  # noqa: E402,F401
+
 # the host's torch threads: load from one process with few threads
 HOST_THREADS = 4
-
-
-def forbidden_modules() -> list:
-    """Loaded modules whose top-level name is JAX's or the JAX
-    package's, compared as whole names."""
-    return sorted(m for m in list(sys.modules)
-                  if m.split(".")[0] in FORBIDDEN)
 
 
 def parse(argv):
@@ -59,27 +57,31 @@ def parse(argv):
 
 
 def execute(args, device="cuda", model_overrides=None, traffic_overrides=None,
-            t_start=None, log=print) -> dict:
-    """One run; returns the result object (the last line's content)."""
+            t_start=None, log=print, root=ROOT, rank_setup=None) -> dict:
+    """One run of the cell as the files under `root` define it; returns
+    the result object (the last line's content). `rank_setup` runs first
+    in each rank process of a cell over several cards."""
     import torch
     from perfbench.core import check, harness, peaks
     from perfbench.core.cells import load_cell
 
-    cell = load_cell(args.workload, model_overrides=model_overrides,
+    cell = load_cell(args.workload, root=root,
+                     model_overrides=model_overrides,
                      traffic_overrides=traffic_overrides)
     torch.set_num_threads(HOST_THREADS)
     run = harness.Run(cell, args.seed, device,
                       T_START if t_start is None else t_start)
-    run.setup()
     trace = bool(args.trace)
     seconds = args.seconds
     if trace:
         seconds = min(seconds, float(cell.traffic["trace_seconds"]))
-    setup_s = time.perf_counter() - run.t_start
-    w = run.window(seconds, trace)
+    w = harness.measure(run, seconds, trace, rank_setup)
 
     cuda = run.cuda
     log(f"card: {peaks.card_state() if cuda else 'none (cpu)'}")
+    if getattr(w, "phases", None):
+        log("seconds of the run's phases: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in w.phases.items()))
     if cuda:
         log(f"device: {torch.cuda.get_device_name(run.device)}, "
             f"{torch.cuda.device_count()} visible, {cell.chips} used")
@@ -101,10 +103,10 @@ def execute(args, device="cuda", model_overrides=None, traffic_overrides=None,
               "memory_peak_bytes": int(w.peak_bytes)}
     result = {"attempted": w.batches * run.batch, "failed": w.failed}
     if trace:
-        metrics, busy_s, window_s, breakdown = run.per_layer(w)
+        metrics, busy_s, window_s, breakdown = w.layers
         device.update(busy_s=busy_s, window_s=window_s)
     else:
-        metrics = harness.end_to_end(cell, w, setup_s)
+        metrics = harness.end_to_end(cell, w, w.setup_s)
         breakdown = None
     w.prof = None
 
@@ -135,7 +137,11 @@ def main(argv=None) -> int:
         print(f"{args.workload} needs {cell.chips} cards, "
               f"{torch.cuda.device_count()} visible", file=sys.stderr)
         return 2
-    result = execute(args)
+    try:
+        result = execute(args)
+    except ForbiddenModules as e:
+        print(f"forbidden modules loaded in a rank: {e}", file=sys.stderr)
+        return 3
     found = forbidden_modules()
     if found:
         print(f"forbidden modules loaded: {', '.join(found)}",

@@ -25,6 +25,14 @@ def test_keys_and_sizes():
     assert (ROOT / MAN["command"][1]).is_file()
 
 
+def test_cells_over_four_cards():
+    """A cell takes 1 card or 4; at most a quarter of the cells, rounded
+    down, take 4, or one where that is fewer."""
+    chips = [w["chips"] for w in MAN["workloads"]]
+    assert set(chips) <= {1, 4}
+    assert chips.count(4) <= max(1, len(chips) // 4)
+
+
 @pytest.mark.parametrize("section", ["configs", "workloads", "end_to_end",
                                      "per_layer"])
 def test_names_units_and_lines(section):

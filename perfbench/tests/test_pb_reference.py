@@ -29,34 +29,34 @@ def _setup(kind):
     pool = make_pool(7, 6, model["spatial_size"], 3, mean)
     blobs = [blob_of(pool[i:i + 2], model["max_voxels"], 3, cw)
              for i in (0, 2, 4)]
-    params = make_params(reference.module_of(model).param_spec(model), 9,
-                         "cpu")
+    mod = reference.BY_MODEL[model["model_name"]]
+    params = make_params(mod.param_spec(model), 9, "cpu")
     tv = TrainVal(cfg, device="cpu")
     tv.initialize(as_variables(params))
-    return model, blobs, params, tv
+    return model, mod, blobs, params, tv
 
 
 @pytest.mark.parametrize("kind", sorted(CASES))
 def test_forward_matches_port(kind):
-    model, blobs, params, tv = _setup(kind)
+    model, mod, blobs, params, tv = _setup(kind)
     blob = blobs[0]
     got = tv.forward(blob)["softmax"]
     n = blob["n_voxels"]
     got = torch.cat([got[b, :n[b]] for b in range(len(n))])
-    want = torch.softmax(reference.infer(model, params, blob, "cpu"), -1)
+    want = torch.softmax(mod.infer(model, params, blob, "cpu"), -1)
     assert (got - want).abs().max() < 1e-5
 
 
 @pytest.mark.parametrize("kind", sorted(CASES))
 def test_training_steps_match_port(kind):
-    model, blobs, params, tv = _setup(kind)
+    model, mod, blobs, params, tv = _setup(kind)
     losses = []
     for i, blob in enumerate(blobs):
         losses.append(float(tv.train_step(blob)["loss"]))
         if i == 0:
             first = {k: tv.optimizer.state[p]["exp_avg"] / 0.1
                      for k, p in tv.model.named_parameters()}
-    ref = reference.train_steps(model, params, blobs, "cpu")
+    ref = reference.train_steps(mod, model, params, blobs, "cpu")
     assert losses == pytest.approx(ref["losses"], rel=1e-5)
     for k, g in ref["grads"].items():
         assert (first[k] - g).norm() <= 1e-4 * g.norm() + 1e-8, k

@@ -188,16 +188,26 @@ def test_every_microsecond_lands_in_one_leaf_bucket(seed):
     assert idle
 
 
-def test_window_profiler_is_found_from_the_harness_frame():
-    """Without `ctx.prof`, the harness's `Run.per_layer`, which calls the
-    readers, holds the window as `w`."""
-    marker = object()
+def test_readers_are_handed_the_window_profiler(monkeypatch):
+    """`Run.per_layer` puts the traced window's profiler on the readers'
+    context, and `spans.of` attributes that one: a CPU step's spans."""
+    from perfbench.core import harness
+    from perfbench.core.trace import Trace
+    from perfbench.tests import tiny
+    seen = []
 
-    def per_layer(w):
-        return spans._window_profiler(SimpleNamespace())
-    assert per_layer(SimpleNamespace(prof=marker)) is marker
-    assert spans._window_profiler(SimpleNamespace(prof=marker)) is marker
-    assert spans._window_profiler(SimpleNamespace()) is None
+    def reader(name, root):
+        def read(ctx):
+            seen.append(ctx)
+            return None
+        return read
+    monkeypatch.setattr(harness, "load_reader", reader)
+    tiny.execute("sparse16_train_b8", trace=1)
+    assert seen and all(c.prof is not None for c in seen)
+    prof = seen[0].prof
+    att = spans.of(SimpleNamespace(prof=prof, trace=Trace(prof)))
+    assert att is not None
+    assert set(att.idle_us) and att.device_us == {}
 
 
 @pytest.mark.parametrize("remat", ["stage_dots", "none"])
