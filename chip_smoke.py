@@ -145,6 +145,21 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    plain path, on which `plain_versions` runs the kernels' plain versions,
    none), phase 11 the row-gather engine's (45 a forward, 162 and 90 a
    step).
+17. MinkUNet34C (`models/minkunet_tiled.py`, `construct("minkunet34c")`;
+   `mink_phase`, alone with `python3 chip_smoke.py --mink`): the BN
+   operator with a residual (`norm_act(..., residual=r)`: apply, bwd
+   reduce and bwd apply with r, d_r written) against its plain versions at
+   the model's level-0 width (96) and level-4 width (256) on their real
+   masks of a 512^3 batch of 8 (level 0 in f32: its first 4 events),
+   bf16 and f32, slopes 0 and 1 (the
+   projection's BN), timed beside the same kernels without r; kernels D
+   and E at a halo of 2 (the 5^3 stem), bitwise against their plain
+   versions on real maps (t=4 at C=1 bf16 and f32 and C=32, t=2 at C=32:
+   E's 32-entry table); then the whole model at its published widths on
+   one 512^3 batch: eval logits and one train step (stage_dots) on the
+   kernels against the plain versions (phase 2's and phase 4's bounds),
+   the kernel launches of a step, and three timed steps at batch 8 with
+   their peak memory.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -681,19 +696,20 @@ def row_map(halo, t, device):
     return rows.flatten()
 
 
-def extend_bytes(kernel: str, a, halo, t: int, dim: int) -> int:
-    """The bytes kernel D ("d", on x) or E ("e", on g) must move: D reads
-    every row of x and writes every extended row; E reads the extended
-    cells that have a source (the body cells, and the slab cells of the
-    neighbors that exist) and writes every row of d_x; both read the
-    maps."""
+def extend_bytes(kernel: str, a, halo, t: int, dim: int, h: int = 1) -> int:
+    """The bytes kernel D ("d", on x) or E ("e", on g) must move at halo
+    width h: D reads every row of x and writes every extended row; E reads
+    the extended cells that have a source (the body cells, and the slab
+    cells of the neighbors that exist) and writes every row of d_x; both
+    read the maps."""
     from uresnet_pytorch_tpu_torch.ops.halo import halo_offsets
     B, T, _, C = a.shape
-    cells, ecells = t ** dim, (t + 2) ** dim
+    cells, ecells = t ** dim, (t + 2 * h) ** dim
     if kernel == "d":
         values = B * T * (cells + ecells) * C
     else:
         slab = torch.tensor([t ** sum(d == 0 for d in off)
+                             * h ** sum(d != 0 for d in off)
                              for off in halo_offsets(dim)],
                             device=halo.ok.device)
         has = B * T * cells + int((halo.ok.sum((0, 2)) * slab).sum())
@@ -709,20 +725,20 @@ def same_bits(a, b) -> bool:
 
 
 def check_extend(name, halo, t, c, dtype, gen, device, dim: int = 3,
-                 timed: bool = True):
-    """Kernels D and E against their plain versions on one level's real
-    halo maps, bitwise, on random rows everywhere (dead rows included).
-    Times each kernel on the device-only timer beside its bound; with
-    `timed`, also the plain version (CUDA events, one call) and the
-    one-call yardstick on the same timer (3D only). Returns {d|e:
-    (max_abs_err, kernel ms, plain ms, bound ms, bound by, library ms)},
-    None for what was not timed."""
+                 timed: bool = True, h: int = 1):
+    """Kernels D and E at halo width h against their plain versions on
+    one level's real halo maps, bitwise, on random rows everywhere (dead
+    rows included). Times each kernel on the device-only timer beside its
+    bound; with `timed` (h = 1), also the plain version (CUDA events, one
+    call) and the one-call yardstick on the same timer (3D only). Returns
+    {d|e: (max_abs_err, kernel ms, plain ms, bound ms, bound by, library
+    ms)}, None for what was not timed."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_extend import (halo26_bwd,
                                                                 halo26_fwd)
     from uresnet_pytorch_tpu_torch.ops.halo import (halo26_extend,
                                                     halo26_transpose)
     B, _, T = halo.idx.shape
-    cells, ecells = t ** dim, (t + 2) ** dim
+    cells, ecells = t ** dim, (t + 2 * h) ** dim
     x = torch.randn(B, T, cells, c, generator=gen, device=device).to(dtype)
     g = torch.randn(B, T, ecells, c, generator=gen, device=device).to(dtype)
     # zeros of both signs (a missing neighbor's +0.0 turns a -0.0 body
@@ -733,7 +749,7 @@ def check_extend(name, halo, t, c, dtype, gen, device, dim: int = 3,
     out = {}
     for key, kern, plain, a in (("d", halo26_fwd, halo26_extend, x),
                                 ("e", halo26_bwd, halo26_transpose, g)):
-        got, ref = kern(a, halo, t, dim), plain(a, halo, t, dim)
+        got, ref = kern(a, halo, t, dim, h), plain(a, halo, t, dim, h)
         torch.cuda.synchronize()
         same = same_bits(got, ref)
         err = float((got.float() - ref.float()).abs().max())
@@ -741,9 +757,9 @@ def check_extend(name, halo, t, c, dtype, gen, device, dim: int = 3,
               f"{tuple(got.shape)} {str(dtype)[6:]}, bitwise equal to plain: "
               f"{same}")
         require(same, f"{kern.__name__} {name} is not bitwise equal to plain")
-        ms = device_ms(lambda: kern(a, halo, t, dim),
+        ms = device_ms(lambda: kern(a, halo, t, dim, h),
                        launches=graph_launches(got))
-        bound_ms, by = bound(0, extend_bytes(key, a, halo, t, dim))
+        bound_ms, by = bound(0, extend_bytes(key, a, halo, t, dim, h))
         plain_ms = library_ms = None
         if timed:
             plain_ms = time_ms(lambda: plain(a, halo, t, dim), iters=1)
@@ -2670,6 +2686,240 @@ def norm_act_phase(cfg, device) -> dict:
     return out
 
 
+# phase 17: MinkUNet34C
+def config_mink(batch: int):
+    """The benchmark's MinkUNet34C configuration at `batch`: the `model`
+    block of perfbench/configs/minkunet34c_512.json, as the benchmark
+    builds it."""
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "perfbench", "configs", "minkunet34c_512.json")
+    with open(path) as f:
+        model = json.load(f)["model"]
+    return URESNetConfig(**model, batch_size=batch)
+
+
+def check_norm_residual(name, x, mask, slope, device) -> dict:
+    """`norm_act` with a residual r at one shape, as `check_norm` holds the
+    kernels without one: the train forward (`norm_act._forward`, r given)
+    against its plain version; the backward's sums (bwd reduce with r)
+    against the plain sums, allowing for each element whose pre-activation
+    lies within rounding of 0 (act' may flip there) its whole term; d_x and
+    d_r of the backward (`norm_act._backward`) against the plain bwd apply
+    on the kernel's sums, within one rounding but for `NORM_FLIP_SHARE` of
+    the elements; d_scale and d_bias the kernel's sums turned into them.
+    Then the three kernels that read r timed with and without it."""
+    from uresnet_pytorch_tpu_torch.ops.cuda import norm_act as na
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    C = x.shape[-1]
+    eps = 1e-5
+
+    def vec(lo, hi):
+        return lo + (hi - lo) * torch.rand(C, generator=gen, device=device)
+    scale, bias = vec(0.5, 1.5), vec(-0.5, 0.5)
+    run_mean, run_var = vec(-0.2, 0.2), vec(0.5, 2.0)
+    r = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
+    dy = torch.randn(x.shape, generator=gen, device=device).to(x.dtype)
+    flags = (True, True, True, slope, eps, 0)    # train, remask, folded
+    y, _, stats = na._forward(x, None, mask, scale, bias, run_mean, run_var,
+                              *flags, r)
+    yp, _, sp = na._forward_plain(x, None, mask, scale, bias, run_mean,
+                                  run_var, *flags, r)
+    dx, _, dsc, dbi, dr = na._backward(dy, None, x, None, mask, scale, bias,
+                                       run_mean, run_var, stats, *flags, r)
+    grads = torch.empty(4, C, dtype=torch.float32, device=device)
+    na._launch(na.BWD_REDUCE, x, None, dy, None, None, None, mask, scale,
+               bias, run_mean, run_var, stats, grads, slope, eps, True, True,
+               True, r)
+    torch.cuda.synchronize()
+    ulp = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -23
+    res = {}
+    err_s = float((stats[:2] - sp[:2]).abs().max()
+                  / sp[:2].abs().max().clamp(min=1e-30))
+    require(err_s <= NORM_SUM_RTOL, f"norm_act with r {name}: stats {err_s}")
+    mean, var, raw, cnt = na.moments_plain(stats[:3], run_mean, run_var,
+                                           True)
+    sh, a, b, inv = na.coef_plain(mean, var, scale, bias, eps, True, x.dtype)
+    # y: one rounding of the plain version's
+    d = (y.float() - yp.float()).abs()
+    # the kernel rounds fma(x, a, b) + r twice, the plain version x a, + b,
+    # + r three times: a few f32 ulps of the terms apart
+    slack = 2.0 ** -20 * (x.float().abs() * a.abs() + b.abs()
+                          + r.float().abs())
+    bad = int((d > ulp * yp.float().abs() + slack).sum())
+    require(bad == 0, f"norm_act with r {name} y: {bad} elements beyond one "
+            f"rounding (max |d| {float(d.max()):.3e})")
+    res["y"] = float(d.max())
+    del d, slack
+    # the backward's sums, an element near v = 0 free to flip
+    gp = na.bwd_reduce_plain(dy, None, x, None, mask, sh, a, b, scale, mean,
+                             inv, slope, True, True, r)
+    g, xf = na._grad_rows(dy, x, mask, sh, a, b, slope, True, r)
+    v = na._pre(xf, sh, a, b, r)
+    near = ((v.abs() <= 2.0 ** -20 * ((xf - sh).abs() * a.abs() + b.abs()
+                                      + r.float().abs()))
+            & mask[..., None]).float()
+    dyf = dy.float()
+    gabs = torch.stack([na._rows(g.abs()).sum(0),
+                        na._rows((g * (xf - sh)).abs()).sum(0)])
+    amb = torch.stack([na._rows(dyf.abs() * near).sum(0),
+                       na._rows((dyf * (xf - sh)).abs() * near).sum(0)])
+    res["near_zero"] = int(near.sum())
+    del g, v, near, dyf
+    off = (grads[:2] - gp[:2]).abs() - amb
+    require(bool((off <= NORM_SUM_RTOL * gabs).all()),
+            f"norm_act with r {name}: backward sums beyond rounding and "
+            f"act' flips ({float((off / gabs.clamp(min=1e-30)).max()):.3e})")
+    res["sums"] = float(((grads[:2] - gp[:2]).abs()
+                         / gabs.clamp(min=1e-30)).max())
+    require(torch.equal(dsc, grads[2]) and torch.equal(dbi, grads[3]),
+            f"norm_act with r {name}: d_scale, d_bias not the kernel's sums")
+    # d_x and d_r on the kernel's sums
+    c1, c2 = na.stat_grads_plain(grads, scale, mean, raw, cnt, inv, True,
+                                 True)
+    dxp, drp = na.bwd_apply_plain(dy, None, x, None, mask, sh, a, b, c1, c2,
+                                  slope, True, r)
+    for what, got, ref, slack in (
+            ("dx", dx, dxp, 2.0 ** -20 * (dy.float().abs() * a.abs()
+                                          + c1.abs()
+                                          + (c2 * x.float()).abs())),
+            ("d_r", dr, drp, 2.0 ** -22 * dy.float().abs())):
+        d = (got.float() - ref.float()).abs()
+        bad = int((d > ulp * ref.float().abs() + slack).sum())
+        require(bad <= NORM_FLIP_SHARE * d.numel(),
+                f"norm_act with r {name} {what}: {bad} elements beyond one "
+                f"rounding (max |d| {float(d.max()):.3e})")
+        res[what] = float(d.max())
+        del d, slack
+    require(not bool(dr[~mask].any()) and not bool(y[~mask].any()),
+            f"norm_act with r {name}: an inactive row holds a nonzero")
+    out_y = torch.empty_like(x)
+    out_dx, out_dr = torch.empty_like(x), torch.empty_like(x)
+
+    def launch(kernel, rr, out=None, d=None, drr=None):
+        na._launch(kernel, x, None, d, None, out, None, mask, scale, bias,
+                   run_mean, run_var, stats, grads, slope, eps, True, True,
+                   True, rr, drr)
+    ms = {}
+    for tag, rr, drr in (("with r", r, out_dr), ("without r", None, None)):
+        ms[tag] = {
+            "apply": device_ms(lambda: launch(na.APPLY, rr, out_y),
+                               launches=20),
+            "bwd_reduce": device_ms(lambda: launch(na.BWD_REDUCE, rr,
+                                                   d=dy), launches=20),
+            "bwd_apply": device_ms(lambda: launch(na.BWD_APPLY, rr, out_dx,
+                                                  dy, drr), launches=20)}
+    act = int(mask.sum())
+    row_b = C * x.element_size()
+    bound_ms = {k: v / PEAK_BYTES * 1e3 for k, v in {
+        "apply": mask.numel() + act * 2 * row_b + x.numel() // C * row_b,
+        "bwd_reduce": mask.numel() + act * 3 * row_b,
+        "bwd_apply": mask.numel() + act * 3 * row_b
+        + 2 * (x.numel() // C) * row_b}.items()}
+    res["ms"], res["bound_ms"] = ms, bound_ms
+    print(f"norm_act with r {name} slope {slope}: {act}/{mask.numel()} rows "
+          f"active; max |d| y {res['y']:.2e}, dx {res['dx']:.2e}, d_r "
+          f"{res['d_r']:.2e}; sums rel {res['sums']:.2e} "
+          f"({res['near_zero']} pre-activations within rounding of 0); ms "
+          f"with r (bound) / without r: "
+          + ", ".join(f"{k} {ms['with r'][k]:.4f} ({bound_ms[k]:.4f}) / "
+                      f"{ms['without r'][k]:.4f}" for k in bound_ms))
+    return res
+
+
+def mink_phase(device, counts) -> dict:
+    """Phase 17: MinkUNet34C's new kernel paths, then the whole model
+    against the plain versions at its published widths (see the module's
+    docstring). Returns the readings by name."""
+    from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    from uresnet_pytorch_tpu_torch.trainval import TrainVal
+    from uresnet_pytorch_tpu_torch.utils.weights import init_params
+    out = {}
+    cfg8 = config_mink(BATCH)
+    blob8 = event_blob(cfg8, BATCH)
+    args8 = [torch.from_numpy(blob8[k]).to(device)
+             for k in ("coords", "values", "n_voxels")]
+    with torch.no_grad():
+        graph = build_tile_graph(*args8, cfg8)
+    masks = []
+    for lev in graph.levels:
+        rows = torch.arange(lev.keys.shape[1], device=device)
+        masks.append((lev.occ & (rows[None] < lev.num[:, None])[..., None])
+                     .contiguous())
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    # (a) the BN operator with a residual at level 0's 96 and level 4's 256
+    # (level 0 in f32 on the batch's first half: nine such tensors of the
+    # whole batch do not fit beside the comparison's)
+    for level, C in ((0, 96), (4, 256)):
+        for dtype in (torch.bfloat16, torch.float32):
+            m = masks[level]
+            if level == 0 and dtype == torch.float32:
+                m = m[:BATCH // 2].contiguous()
+            x = (torch.randn(m.shape + (C,), generator=gen, device=device)
+                 * m[..., None]).to(dtype)
+            for slope in (0.0, 1.0):
+                name = f"L{level} C={C} {str(dtype)[6:]}"
+                out[f"norm_act_r {name} s{slope}"] = check_norm_residual(
+                    name, x, m, slope, device)
+            del x
+            torch.cuda.empty_cache()
+    # (b) kernels D and E at a halo of 2
+    for name, level, t, c, dtype in (
+            ("h=2 L0 t=4 C=1", 0, 4, 1, torch.bfloat16),
+            ("h=2 L0 t=4 C=1 f32", 0, 4, 1, torch.float32),
+            ("h=2 L0 t=4 C=32", 0, 4, 32, torch.bfloat16),
+            ("h=2 L1 t=2 C=32", 1, 2, 32, torch.bfloat16)):
+        out[f"extend {name}"] = check_extend(
+            name, graph.levels[level].halo, t, c, dtype, gen, device,
+            timed=False, h=2)
+    del graph, masks
+    torch.cuda.empty_cache()
+    # (c) the whole model on one 512^3 batch against the plain versions
+    cfg = config_mink(BATCH4)
+    blob = event_blob(cfg, BATCH4)
+    args = [torch.from_numpy(blob[k]).to(device)
+            for k in ("coords", "values", "n_voxels")]
+    variables = init_params(cfg, torch.Generator().manual_seed(SEED))
+    tv = TrainVal(cfg)
+    tv.initialize(variables)
+    with torch.no_grad():
+        got, _ = tv.model(*args)
+        with plain_versions():
+            ref, _ = tv.model(*args)
+    torch.cuda.synchronize()
+    rows = torch.arange(cfg.max_voxels, device=device)
+    valid = rows[None] < args[2][:, None]
+    compare_logits(got, ref, valid, "minkunet34c eval logits, kernels vs "
+                   "plain")
+    del tv, got, ref
+    torch.cuda.empty_cache()
+    compare_step(cfg, variables, blob, counts, "minkunet34c")
+    torch.cuda.empty_cache()
+    # launches of one stage_dots step and timed steps at batch 8
+    tv = TrainVal(cfg8)
+    tv.initialize(init_params(cfg8, torch.Generator().manual_seed(SEED)))
+    tv.train_step(blob8)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    before = counts()
+    losses, ms = [], []
+    for _ in range(3):
+        met, t_ms = timed_call(lambda: tv.train_step(blob8))
+        losses.append(float(met["loss"]))
+        ms.append(t_ms)
+    after = counts()
+    per_step = {k: (after[k] - before[k]) / 3 for k in after}
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    require(all(np.isfinite(losses)), f"minkunet34c losses {losses}")
+    print(f"minkunet34c batch {BATCH} stage_dots: step ms {ms}, losses "
+          f"{losses}, peak {peak:.2f} GiB; kernel launches a step "
+          f"{per_step}")
+    out["step"] = {"ms": ms, "losses": losses, "peak_gib": peak,
+                   "launches": per_step}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this needs "
@@ -2730,6 +2980,16 @@ def main() -> int:
     t0 = time.perf_counter()
     lib = cuda.build()
     print(f"kernels built: {lib.name} in {time.perf_counter() - t0:.1f} s")
+
+    if "--mink" in sys.argv[1:]:
+        # phase 17 alone
+        mink = mink_phase(device, counts)
+        print(f"chip_smoke --mink: {time.perf_counter() - t_start:.1f} s")
+        print(json.dumps({"mink": mink}, default=str))
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     cfg = config3()
     coords, values, nv = events(cfg, device)
@@ -3419,8 +3679,10 @@ def main() -> int:
                      "fwd_bwd": n0["chain_fwd_bwd_ms"]},
         "library_ms": None,
         "by_shape": norm_res})
+    # -- phase 17: MinkUNet34C --------------------------------------------
+    mink = mink_phase(device, counts)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "mink": mink}, default=str))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

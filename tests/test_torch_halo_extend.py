@@ -210,16 +210,16 @@ def _nbr(spec, rows, k, T, dim):
     return torch.where(live, b * T + cand, -1)
 
 
-def _emulate(kernel, a, spec, t, dim, plan):
+def _emulate(kernel, a, spec, t, dim, plan, h=1):
     """(output, stores of each output unit) of kernel D ("d", a = x) or E
-    ("e", a = g) following `plan` step by step: blocks of plan.tiles tile
-    rows, THREADS threads each taking plan.pieces pieces THREADS apart per
-    step, a piece's per_piece units of vec bytes, each unit's value from
-    the table, the neighbor rows and the input (E: the body, then the
-    table's terms in order, added in a's dtype)."""
+    ("e", a = g) at halo width h following `plan` step by step: blocks of
+    plan.tiles tile rows, THREADS threads each taking plan.pieces pieces
+    THREADS apart per step, a piece's per_piece units of vec bytes, each
+    unit's value from the table, the neighbor rows and the input (E: the
+    body, then the table's terms in order, added in a's dtype)."""
     B, T, _, C = a.shape
     item = a.element_size()
-    cells, ecells = t ** dim, (t + 2) ** dim
+    cells, ecells = t ** dim, (t + 2 * h) ** dim
     cells_out = ecells if kernel == "d" else cells
     nvec = C * item // plan.vec
     units = cells_out * nvec
@@ -246,7 +246,8 @@ def _emulate(kernel, a, spec, t, dim, plan):
     cell, v = u // nvec, u % nvec
     per = plan.vec // item                     # values a unit
     src = a.reshape(B * T, -1, nvec, per)
-    tab = torch.from_numpy(he.extend_table(kernel, t, dim).astype(np.int64))
+    tab = torch.from_numpy(he.extend_table(kernel, t, dim, h).astype(
+        np.int64))
 
     def unit(rows, c):
         got = src[rows.clamp(min=0), torch.where(rows >= 0, c, 0), v]
@@ -261,9 +262,9 @@ def _emulate(kernel, a, spec, t, dim, plan):
         code = tab[cell]
         val = unit(nbr(code >> 10), code & 1023)
     else:
-        w = tab[cell]                             # (units, 8)
+        w = tab[cell]                             # (units, width)
         val = unit(row, w[:, 0] & 1023)
-        for k in range(1, 8):
+        for k in range(1, tab.shape[1]):
             term = k <= w[:, 0] >> 10             # the unit's n slab terms
             r = torch.where(term, nbr(torch.where(term, w[:, k] >> 10, 0)),
                             -1)
@@ -333,13 +334,167 @@ def test_every_plan_has_a_kernel(kernel):
     with the pieces a thread its dispatch expects."""
     pairs = _dispatched(kernel)
     assert len(pairs) == (10 if kernel == "d" else 4)
-    for t in he.TILE_SIZES:
+    for h, t in [(h, t) for h, sizes in he.TILE_SIZES_BY_HALO.items()
+                 for t in sizes]:
         for dim in (2, 3):
             for row_bytes in range(2, 330, 2):
                 for align in (2, 4, 8, 16):
-                    plan = he.extend_plan(kernel, t, dim, row_bytes, align)
+                    plan = he.extend_plan(kernel, t, dim, row_bytes, align,
+                                          h=h)
                     assert (plan.vec, plan.per_piece) in pairs
                     m = plan.per_piece
                     want = max(1, 4 // m) if kernel == "d" else 1
                     assert plan.pieces == want
                     assert 1 <= plan.tiles <= he.MAX_TILES
+
+
+# -- a halo of 2: the 5^dim stencil's extend (MinkUNet34C's stem) -----------
+
+def _dense_level(dim, t, seed, live=40):
+    """A level of `live` tiles among 64 (so most tiles have neighbors on
+    every side), its spec and tile coordinates, and random rows on every
+    cell of its live tiles (0 on dead rows)."""
+    from uresnet_pytorch_tpu_torch.ops.coords import decode
+    G = {2: 8, 3: 4}[dim]
+    rng = np.random.default_rng(seed)
+    keys = torch.from_numpy(np.stack([np.asarray(_random_level(
+        rng, G, dim, T, live)[0]) for _ in range(B)]))
+    spec = build_halo26(keys, G, dim)
+    x = torch.from_numpy(rng.normal(size=(B, T, t ** dim, 3)))
+    x[~spec.blive] = 0.0
+    return spec, decode(keys, G, dim).long(), x
+
+
+def _direct_map(spec, coords, t, dim, h):
+    """(b, tile, ext cell) -> (b, tile, cell) by direct lookup: ext cell e
+    of a live tile (offsets -h .. t+h-1 from its origin along each axis)
+    shows the cell of whichever live tile covers that global position."""
+    import itertools
+    E = t + 2 * h
+    pairs = []
+    for b in range(B):
+        live = spec.blive[b].nonzero()[:, 0].tolist()
+        where = {tuple(coords[b, j].tolist()): j for j in live}
+        for j in live:
+            for ei, e in enumerate(itertools.product(range(E), repeat=dim)):
+                g = [int(coords[b, j, a]) * t + e[a] - h for a in range(dim)]
+                tile = tuple(v // t for v in g)
+                if tile in where:
+                    cell = 0
+                    for v in g:
+                        cell = cell * t + v % t
+                    pairs.append((b, j, ei, where[tile], cell))
+    return torch.tensor(pairs)
+
+
+@pytest.mark.parametrize("dim,t", [(3, 2), (3, 4), (2, 2), (2, 4)])
+def test_halo2_extend_and_transpose_against_a_direct_gather(dim, t):
+    """At a halo of 2 every live tile's extended cells hold the cells 1 and
+    2 deep into its face, edge and corner neighbors (2 <= t: the same 26
+    neighbors), zeros where none is live; the transpose adds each extended
+    cell's cotangent back to its source cell, exactly (f64)."""
+    spec, coords, x = _dense_level(dim, t, seed=31 * t + dim)
+    h = 2
+    ext = halo26_extend(x, spec, t, dim, h)
+    assert ext.shape == (B, T, (t + 2 * h) ** dim, 3)
+    m = _direct_map(spec, coords, t, dim, h)
+    want = torch.zeros_like(ext)
+    want[m[:, 0], m[:, 1], m[:, 2]] = x[m[:, 0], m[:, 3], m[:, 4]]
+    live = spec.blive
+    assert torch.equal(ext[live], want[live])
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=ext.shape))
+    g[~live] = 0.0
+    d_x = halo26_transpose(g, spec, t, dim, h)
+    want_dx = torch.zeros_like(x).index_put_(
+        (m[:, 0], m[:, 3], m[:, 4]), g[m[:, 0], m[:, 1], m[:, 2]],
+        accumulate=True)
+    torch.testing.assert_close(d_x[live], want_dx[live], rtol=1e-12,
+                               atol=1e-12)
+    # the halo of 1 is unchanged: the default
+    assert torch.equal(halo26_extend(x, spec, t, dim),
+                       halo26_extend(x, spec, t, dim, 1))
+
+
+SPLITS_H2 = ([(t, dim, C, torch.bfloat16) for t in (2, 4) for dim in (2, 3)
+              for C in (1, 3, 32)]
+             + [(t, dim, C, torch.float32) for t in (2, 4) for dim in (2, 3)
+                for C in (1, 32)])
+
+
+@pytest.mark.parametrize("t,dim,C,dtype", SPLITS_H2)
+def test_halo2_work_split_writes_once_and_matches_plain(t, dim, C, dtype):
+    """Kernels D and E at a halo of 2 as extend_plan splits them and
+    extend_table maps them (E's table 32 entries a cell at t = 2, where a
+    cell lies in all 26 slabs) write every output element once, bitwise
+    the plain versions'."""
+    h = 2
+    rng, spec = _spec(dim, seed=200 + t * 10 + dim + C)
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    assert he.extend_table("e", t, dim, h).shape[1] == \
+        he.table_width(t, dim, h) == (32 if t == 2 else 8)
+    for kernel, cells_in, plain in (
+            ("d", t ** dim, halo26_extend),
+            ("e", (t + 2 * h) ** dim, halo26_transpose)):
+        a = torch.from_numpy(rng.normal(
+            size=(B, T, cells_in, C)).astype(np.float32)).to(dtype)
+        a[a.abs() < 0.3] = -0.0
+        plan = he.extend_plan(kernel, t, dim, C * a.element_size(), h=h)
+        out, writes = _emulate(kernel, a, spec, t, dim, plan, h)
+        assert bool((writes == 1).all()), f"{kernel}: {plan}"
+        assert torch.equal(out.view(ints),
+                           plain(a, spec, t, dim, h).view(ints))
+
+
+def test_table_width_holds_every_slab():
+    """E's table has room for each cell's body entry and all its slab
+    terms at every tile size and halo the kernels take, and D's and E's
+    tables at a halo of 1 are those of the default."""
+    for h, sizes in he.TILE_SIZES_BY_HALO.items():
+        for t in sizes:
+            for dim in (2, 3):
+                tab = he.extend_table("e", t, dim, h)
+                n = tab[:, 0].astype(np.int64) >> 10
+                assert tab.shape[1] == he.table_width(t, dim, h)
+                assert int(n.max()) + 1 <= tab.shape[1]
+                assert int(n.max()) == (3 ** dim - 1 if 2 * h > t
+                                        else 2 ** dim - 1)
+    for kernel in ("d", "e"):
+        assert np.array_equal(he.extend_table(kernel, 4, 3),
+                              he.extend_table(kernel, 4, 3, 1))
+
+
+def test_5cubed_tiled_conv_matches_the_125_offset_conv():
+    """A 5^3 submanifold conv on the tiles (the halo-2 extend and one VALID
+    conv, `submanifold_conv_tiled` on a (125, Cin, Cout) weight) equals the
+    plain reference's conv offset by offset over the active sites
+    (tests/plain_minkunet.py), at every active cell, in f64 to 1e-12."""
+    from tests import plain_minkunet as pm
+    from tests.test_torch_train import _blob
+    from uresnet_pytorch_tpu_torch.config import URESNetConfig as TConfig
+    from uresnet_pytorch_tpu_torch.ops.coords import decode
+    from uresnet_pytorch_tpu_torch.ops.tile_conv import \
+        submanifold_conv_tiled
+    from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
+    cfg = TConfig(spatial_size=32, uresnet_num_strides=2, max_voxels=512,
+                  min_level_capacity=64, tile_size=4, tile_sizes=(4, 2),
+                  compute_dtype="float32")
+    blob = _blob(cfg, mean_voxels=400, seed=9, weight=False)
+    graph = build_tile_graph(*(torch.from_numpy(blob[k]) for k in
+                               ("coords", "values", "n_voxels")), cfg)
+    lev, t = graph.levels[0], 4
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(lev.occ.shape + (3,), generator=g,
+                    dtype=torch.float64) * lev.occ[..., None]
+    w = torch.randn((125, 3, 4), generator=g, dtype=torch.float64)
+    y = submanifold_conv_tiled(x, lev.occ, lev.halo, t, 3, w)
+    b, j, c = lev.occ.nonzero(as_tuple=True)
+    tile = decode(lev.keys, cfg.spatial_size // t, 3).long()[b, j]
+    cell = torch.stack([c // 16, (c // 4) % 4, c % 4], 1)
+    keys = pm._key(b, tile * t + cell, cfg.spatial_size)
+    order = torch.argsort(keys)
+    site = pm.Level(keys[order], cfg.spatial_size)
+    ref = pm.MinkUNet.conv(x[b, j, c][order], w, site)
+    torch.testing.assert_close(y[b, j, c][order], ref, rtol=1e-12,
+                               atol=1e-12)
+    # cells off the occupancy hold exact zeros
+    assert not bool(y[~lev.occ].any())

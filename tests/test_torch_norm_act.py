@@ -312,3 +312,100 @@ def test_dense_channels_last_and_other_layouts():
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-6)
     with pytest.raises(ValueError, match="contiguous"):
         na.norm_act_via_op(x, None, p.scale, p.bias, p.mean, p.var, **kw)
+
+
+# -- a residual operand: act(BN(x) + r) [* mask] -----------------------------
+
+def _residual_chain(x, r, mask, scale, bias, mean, var, *, train, remask,
+                    folded, slope, dtype):
+    """act(BN(x) + r) [* mask] in torch ops, each BN as `_chain` takes it:
+    the reference the residual's gradients d_x, d_r, d_scale, d_bias come
+    from by autograd. x and r are rows (..., C) or, unfolded, (B, C, *S)."""
+    moments = None
+    red = tuple(range(x.dim() - 1)) if folded else \
+        (0,) + tuple(range(2, x.dim()))
+    shape = (-1,) if folded else (1, -1) + (1,) * (x.dim() - 2)
+    acc = torch.float64 if x.dtype == torch.float64 else torch.float32
+    if train:
+        m = mask[..., None].to(acc) if mask is not None \
+            else torch.ones((), dtype=acc)
+        n = (m.sum() if mask is not None
+             else torch.tensor(float(x.numel() // x.shape[-1 if folded
+                                                          else 1])))
+        xf = x.to(acc) * m
+        mean = xf.sum(red) / n.clamp(min=1.0)
+        var = ((xf * xf).sum(red) / n.clamp(min=1.0)
+               - mean * mean).clamp(min=0.0)
+        moments = (mean.detach(), var.detach())
+    inv = torch.rsqrt(var + EPS)
+    v = (x.to(acc) - mean.view(shape)) * (inv * scale).view(shape) \
+        + bias.view(shape) + r.to(acc)
+    y = _act(v, slope).to(dtype)
+    if remask:
+        y = y * mask[..., None].to(y.dtype)
+    return y, moments
+
+
+def _residual_cases():
+    return [(flavour, slope, train) for flavour in ("remask", "rows", "dense")
+            for slope in (0.0, 0.1, 1.0) for train in (True, False)]
+
+
+@pytest.mark.parametrize("path", ["cpu", "op"])
+@pytest.mark.parametrize("case", _residual_cases(),
+                         ids=lambda c: f"{c[0]}-s{c[1]}-"
+                         f"{'train' if c[2] else 'eval'}")
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_residual_matches_a_torch_chain(case, dtype, path):
+    """`norm_act(..., residual=r)`: the models' CPU path (the chain with
+    the residual) and the operator's plain kernels give act(BN(x) + r)
+    [* mask], its moments, and d_x, d_r, d_scale and d_bias as autograd
+    takes them through the torch chain above; slope 1 is a projection's
+    BN, with no activation. f64 agrees to 1e-10 (the dense flavour, whose
+    BN runs in f32, to f32's 1e-4), f32 to 1e-4 relative and 1e-5
+    absolute."""
+    flavour, slope, train = case
+    xs, mask, scale, bias, run_mean, run_var, dys = _inputs(
+        (flavour, (16,), slope, train, None), dtype, seed=5)
+    r = torch.randn(xs[0].shape, generator=torch.Generator().manual_seed(6),
+                    dtype=torch.float64).to(dtype) * 0.8
+    dense = flavour == "dense"
+    leaves = [xs[0].clone().requires_grad_(), r.clone().requires_grad_(),
+              scale.clone().requires_grad_(), bias.clone().requires_grad_()]
+    view = (lambda t: t.movedim(-1, 1)) if dense else (lambda t: t)
+    kw = dict(train=train, remask=flavour == "remask", folded=not dense,
+              slope=slope, dtype=dtype)
+    fn = na.norm_act if path == "cpu" else na.norm_act_via_op
+    y, moments = fn(view(leaves[0]), mask, leaves[2], leaves[3], run_mean,
+                    run_var, eps=EPS, cdim=1 if dense else -1,
+                    residual=view(leaves[1]), **kw)
+    got = torch.autograd.grad(y, leaves, view(dys[0]))
+    ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+    y_ref, m_ref = _residual_chain(view(ref_leaves[0]), view(ref_leaves[1]),
+                                   mask, ref_leaves[2], ref_leaves[3],
+                                   run_mean, run_var, **kw)
+    want = torch.autograd.grad(y_ref, ref_leaves, view(dys[0]))
+    tol = TOL[torch.float32 if dense else dtype]
+    torch.testing.assert_close(y, y_ref.to(y.dtype), **tol)
+    if train:
+        for a, b in zip(moments, m_ref):
+            torch.testing.assert_close(a, b.to(a.dtype), **tol)
+    else:
+        assert moments is None
+    scale_g = max(1.0, max(float(g.abs().max()) for g in want))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b.to(a.dtype), rtol=tol["rtol"],
+                                   atol=tol["atol"] * scale_g)
+    if flavour == "remask":     # an inactive row passes no gradient to r
+        assert not bool(got[1][~mask].any())
+
+
+def test_residual_refuses_a_pair():
+    case = ("remask", (16, 16), 0.1, True, None)
+    xs, mask, scale, bias, run_mean, run_var, _ = _inputs(case,
+                                                          torch.float32)
+    for fn in (na.norm_act, na.norm_act_via_op):
+        with pytest.raises(ValueError, match="residual"):
+            fn(tuple(xs), mask, scale, bias, run_mean, run_var, train=True,
+               remask=True, folded=True, slope=0.0, eps=EPS,
+               dtype=torch.float32, residual=xs[0])

@@ -25,7 +25,9 @@ def _round_up(x: int, m: int) -> int:
 @dataclass(frozen=True)
 class URESNetConfig:
     # ---- model ----
-    model_name: str = "uresnet_sparse"  # {uresnet_sparse, uresnet_dense}
+    # {uresnet_sparse, uresnet_dense, minkunet34c}; the last is the port's
+    # own (MinkowskiEngine's MinkUNet34C, models/minkunet_tiled.py)
+    model_name: str = "uresnet_sparse"
     num_class: int = 5
     uresnet_filters: int = 16           # base filter count m
     uresnet_num_strides: int = 5        # resolution levels
@@ -91,7 +93,8 @@ class URESNetConfig:
     def __post_init__(self):
         if self.data_dim not in (2, 3):
             raise ValueError(f"data_dim must be 2 or 3, got {self.data_dim}")
-        if self.model_name not in ("uresnet_sparse", "uresnet_dense"):
+        if self.model_name not in ("uresnet_sparse", "uresnet_dense",
+                                   "minkunet34c"):
             raise ValueError(f"unknown model_name {self.model_name!r}")
         if self.remat_mode not in ("stage", "stage_dots",
                                    "stage_dots_deep", "none"):

@@ -9,7 +9,9 @@
 //                        + (ok[b,K-1-k,j] ? g[b, idx[b,K-1-k,j], e_k(s), :] : 0)
 //                        rounded to the dtype after every add
 //
-// x (B, T, t^dim, C), ext and g (B, T, (t+2)^dim, C), channels last; idx/ok
+// x (B, T, t^dim, C), ext and g (B, T, (t+2h)^dim, C), channels last, at a
+// halo width h of 1 (the 3^dim stencil) or 2 (the 5^dim stencil: two
+// layers of the same 26 neighbors, h <= t); idx/ok
 // (B, 3^dim - 1, T) are the halo maps of ops/halo.py (offsets in
 // halo_offsets order: -delta_k is offset K-1-k). Every row is computed, dead
 // ones included: this is ops/halo.py's halo26_extend and halo26_transpose on
@@ -27,7 +29,8 @@
 // cell's source rows through idx/ok directly.
 //
 // What bounds them on an H100: bytes. They compute nothing (E adds at most
-// 2^dim - 1 values per element). D writes B*T*(t+2)^dim*C*itemsize and reads
+// 2^dim - 1 values per element at h = 1, up to 3^dim - 1 at h = 2 on t = 2).
+// D writes B*T*(t+2h)^dim*C*itemsize and reads
 // B*T*t^dim*C*itemsize once from HBM (a source row is read by up to 2^dim
 // tiles, the repeats mostly from L2); E reads the extended cells that have a
 // source and writes the second. What keeps a row mover from HBM's rate is
@@ -53,9 +56,10 @@
 // shared memory):
 //   D: for each ext cell e, (3^dim stencil offset or center) << 10 | source
 //      cell;
-//   E: for each source cell s, 8 entries: (its slab count n) << 10 | its
-//      body ext cell, then the (negated offset) << 10 | ext cell of each of
-//      the n slabs that hold it, in ascending offset order, then 0xFFFF.
+//   E: for each source cell s, W entries (8, or 32 where a cell lies in
+//      more than 7 slabs): (its slab count n) << 10 | its body ext cell,
+//      then the (negated offset) << 10 | ext cell of each of the n slabs
+//      that hold it, in ascending offset order, then 0xFFFF.
 
 #include <cstring>
 
@@ -68,7 +72,7 @@ using halo::ipow;
 
 constexpr int kThreads = 256;
 constexpr int kMaxTiles = 64;      // tiles per block
-constexpr int kMaxCells = 512;     // 8^3: E's table in shared memory
+constexpr int kMaxEntries = 4096;  // E's table in shared memory (uint16)
 
 template <int N> struct Vec;       // an N-byte vector type
 template <> struct Vec<2> { using T = uint16_t; };
@@ -205,10 +209,10 @@ __device__ __forceinline__ V vadd(V a, const V& b) {
 }
 
 // E: one VB-byte unit a thread per step, added in the element type E. The
-// unit's body load and its n <= 2^dim - 1 slab loads (n from the table) are
-// all issued before the first add; a missing neighbor's term loads +0.0 and
-// is added as in the plain version.
-template <int VB, typename E>
+// unit's body load and its n <= W - 1 slab loads (n from the table of W
+// entries a cell) are all issued before the first add; a missing
+// neighbor's term loads +0.0 and is added as in the plain version.
+template <int VB, typename E, int W>
 __global__ void __launch_bounds__(kThreads)
 halo_transpose_kernel(const typename Vec<VB>::T* __restrict__ gr,
                       const int* __restrict__ idx,
@@ -216,12 +220,12 @@ halo_transpose_kernel(const typename Vec<VB>::T* __restrict__ gr,
                       const uint16_t* __restrict__ tab,
                       char* __restrict__ dx, const Geo g) {
   using V = typename Vec<VB>::T;
-  constexpr int kSlabs = 7;        // 2^dim - 1 at most
+  constexpr int kSlabs = W - 1;    // slabs a cell at most
   __shared__ int nbr[kMaxTiles * 27];
-  __shared__ uint4 stab[kMaxCells];   // 8 entries a cell
+  __shared__ uint4 stab[kMaxEntries / 8];   // W entries a cell
   const int row0 = blockIdx.x * g.tiles;
   load_tiles(nbr, row0, idx, ok, g);
-  for (int i = threadIdx.x; i < g.cells; i += blockDim.x)
+  for (int i = threadIdx.x; i < g.cells * (W / 8); i += blockDim.x)
     stab[i] = __ldg(reinterpret_cast<const uint4*>(tab) + i);
   __syncthreads();
   const uint16_t* entries = reinterpret_cast<const uint16_t*>(stab);
@@ -233,7 +237,7 @@ halo_transpose_kernel(const typename Vec<VB>::T* __restrict__ gr,
     const int rest = u - jj * g.units;
     const int s = (int)g.by_vec.div((unsigned)rest);
     const int v = rest - s * g.nvec;
-    const uint16_t* w = entries + s * 8;
+    const uint16_t* w = entries + s * W;
     const int n = w[0] >> 10;
     V acc = load_unit(gr, row, w[0] & 1023, v, g, g.ecells);
     V val[kSlabs];
@@ -254,24 +258,30 @@ halo_transpose_kernel(const typename Vec<VB>::T* __restrict__ gr,
   }
 }
 
+// Entries a source cell of E's table (ops/cuda/halo_extend.py:
+// table_width): 8, or 32 where a halo of 2 on t = 2 puts a cell in all 26
+// slabs.
+int table_width(int t, int h) { return h == 1 || t >= 2 * h ? 8 : 32; }
+
 // The launch geometry from the host's plan, or a cudaError_t for a plan or
 // arguments the kernels refuse.
-int geometry(int B, int T, int t, int dim, int row_bytes, int vec, int store,
-             int per_piece, int tiles, bool transpose, Geo* g) {
+int geometry(int B, int T, int t, int dim, int h, int row_bytes, int vec,
+             int store, int per_piece, int tiles, bool transpose, Geo* g) {
   if (B < 1 || T < 1 || row_bytes < 1 || dim < 2 || dim > 3 || t < 2 ||
-      t > 8 || tiles < 1 || tiles > kMaxTiles || vec < 2 || vec > 16 ||
+      t > 8 || h < 1 || h > 2 || h > t || tiles < 1 || tiles > kMaxTiles ||
+      vec < 2 || vec > 16 ||
       (vec & (vec - 1)) || row_bytes % vec || store != vec * per_piece ||
       store > 16 || (long long)B * T + tiles > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   g->rows = B * T;
   g->T = T;
   g->cells = ipow(t, dim);
-  g->ecells = ipow(t + 2, dim);
+  g->ecells = ipow(t + 2 * h, dim);
   g->Kf = ipow(3, dim);
   g->nvec = row_bytes / vec;
   g->tiles = tiles;
   const int cells_out = transpose ? g->cells : g->ecells;
-  if (g->ecells > 1024 || g->cells > kMaxCells ||
+  if (g->ecells > 1024 || g->cells * table_width(t, h) > kMaxEntries ||
       (cells_out * row_bytes) % store)
     return (int)cudaErrorInvalidValue;
   g->units = cells_out * g->nvec;
@@ -296,11 +306,11 @@ int launch_extend(const void* x, const void* idx, const void* ok,
   return (int)cudaGetLastError();
 }
 
-template <int VB, typename E>
+template <int VB, typename E, int W>
 int launch_transpose(const void* gr, const void* idx, const void* ok,
                      const void* tab, void* dx, const Geo& g,
                      cudaStream_t st) {
-  halo_transpose_kernel<VB, E><<<blocks(g), kThreads, 0, st>>>(
+  halo_transpose_kernel<VB, E, W><<<blocks(g), kThreads, 0, st>>>(
       (const typename Vec<VB>::T*)gr, (const int*)idx, (const uint8_t*)ok,
       (const uint16_t*)tab, (char*)dx, g);
   return (int)cudaGetLastError();
@@ -329,11 +339,17 @@ int dispatch_extend(const void* x, const void* idx, const void* ok,
 template <typename E>
 int dispatch_transpose(const void* gr, const void* idx, const void* ok,
                        const void* tab, void* dx, const Geo& g, int vec,
-                       int per_piece, int pieces, cudaStream_t st) {
+                       int per_piece, int pieces, int width,
+                       cudaStream_t st) {
 #define X(VB)                                                           \
   if constexpr (VB % sizeof(E) == 0) {                                  \
-    if (vec == VB && per_piece == 1 && pieces == 1)                     \
-      return launch_transpose<VB, E>(gr, idx, ok, tab, dx, g, st);      \
+    if (vec == VB && per_piece == 1 && pieces == 1) {                   \
+      if (width == 8)                                                   \
+        return launch_transpose<VB, E, 8>(gr, idx, ok, tab, dx, g, st); \
+      if (width == 32)                                                  \
+        return launch_transpose<VB, E, 32>(gr, idx, ok, tab, dx, g,     \
+                                           st);                         \
+    }                                                                   \
   }
   E_PLANS(X)
 #undef X
@@ -344,38 +360,41 @@ int dispatch_transpose(const void* gr, const void* idx, const void* ok,
 
 extern "C" {
 
-// Kernel D. row_bytes = C * itemsize; (vec, store, per_piece, pieces,
-// tiles) is extend_plan's split of ops/cuda/halo_extend.py and `table` its
-// extend_table("d", t, dim) on the device. Returns a cudaError_t
-// (0 = launched).
+// Kernel D at halo width h. row_bytes = C * itemsize; (vec, store,
+// per_piece, pieces, tiles) is extend_plan's split of
+// ops/cuda/halo_extend.py and `table` its extend_table("d", t, dim, h) on
+// the device. Returns a cudaError_t (0 = launched).
 int halo_extend(const void* x, const void* idx, const void* ok,
                 const void* table, void* ext, int B, int T, int t, int dim,
-                int row_bytes, int vec, int store, int per_piece, int pieces,
-                int tiles, void* stream) {
+                int h, int row_bytes, int vec, int store, int per_piece,
+                int pieces, int tiles, void* stream) {
   Geo g;
-  const int err = geometry(B, T, t, dim, row_bytes, vec, store, per_piece,
-                           tiles, false, &g);
+  const int err = geometry(B, T, t, dim, h, row_bytes, vec, store,
+                           per_piece, tiles, false, &g);
   if (err) return err;
   return dispatch_extend(x, idx, ok, table, ext, g, vec, per_piece, pieces,
                          (cudaStream_t)stream);
 }
 
 // Kernel E, in bfloat16 (is_f32 = 0) or float32 (is_f32 = 1, vec >= 4),
-// with extend_table("e", t, dim). Otherwise as halo_extend.
+// with extend_table("e", t, dim, h), whose width (entries a cell) is 8
+// unless h = 2 on t = 2 (32: every cell in all 26 slabs). Otherwise as
+// halo_extend.
 int halo_transpose(const void* g_ext, const void* idx, const void* ok,
                    const void* table, void* dx, int B, int T, int t, int dim,
-                   int row_bytes, int vec, int store, int per_piece,
+                   int h, int row_bytes, int vec, int store, int per_piece,
                    int pieces, int tiles, int is_f32, void* stream) {
   Geo g;
-  const int err = geometry(B, T, t, dim, row_bytes, vec, store, per_piece,
-                           tiles, true, &g);
+  const int err = geometry(B, T, t, dim, h, row_bytes, vec, store,
+                           per_piece, tiles, true, &g);
   if (err) return err;
+  const int width = table_width(t, h);
   cudaStream_t st = (cudaStream_t)stream;
   if (is_f32)
     return dispatch_transpose<float>(g_ext, idx, ok, table, dx, g, vec,
-                                     per_piece, pieces, st);
+                                     per_piece, pieces, width, st);
   return dispatch_transpose<__nv_bfloat16>(g_ext, idx, ok, table, dx, g, vec,
-                                           per_piece, pieces, st);
+                                           per_piece, pieces, width, st);
 }
 
 }  // extern "C"

@@ -4,15 +4,20 @@
 // x is (rows, C) channels last: the tile engine's (B, T, cells, C), or a
 // dense (B, C, *S) volume in channels-last memory. Optionally it is a pair
 // of tensors (rows, C0) and (rows, C1) that stand for their channel concat
-// (the decoder's (up, skip)); per-channel vectors then cover C0 + C1. With
-// the per-channel pre-activation v = (x - sh) * a + b:
+// (the decoder's (up, skip)); per-channel vectors then cover C0 + C1. A
+// single tensor may carry a residual r (rows, C) added before the
+// activation (a post-activation residual block). With the per-channel
+// pre-activation v = (x - sh) * a + b [+ r]:
 //
 //   stats        s1 = sum m x, s2 = sum m x^2, n = sum m over the rows
 //                (m the row's mask byte, 1 where there is no mask)
 //   apply        y = act(v), times m under `remask`
 //   bwd reduce   sum g and sum g (x - sh), g = dy act'(v) (times m under
 //                remask), and from them d_scale and d_bias
-//   bwd apply    dx = g a + m (c1 + c2 x)
+//   bwd apply    dx = g a + m (c1 + c2 x), and with r, d_r = g
+//
+// The kernels with r are instances of their own (template flag R), so a
+// call without r runs the code it ran before r existed.
 //
 // act(v) = v >= 0 ? v : slope v; act' is 1 at v > 0, slope at v < 0, and at
 // v = 0 1 for a leaky slope (the gradient of where(v >= 0, v, s v)) and 0
@@ -70,6 +75,8 @@ struct Params {
   const void* x[2];       // the halves, (rows, c[h]) each
   const void* dy[2];      // backward: their output gradients
   void* out[2];           // y (apply) or dx (bwd apply)
+  const void* res[2];     // the residual (rows, c[0]), both entries (R)
+  void* dres[2];          // bwd apply: its gradient, both entries (R)
   int c[2];               // channels of each half (c[1] = 0: one tensor)
   long long rows;
   const uint8_t* mask;    // (rows,) or null: every row counts
@@ -444,7 +451,24 @@ __device__ void zero_inactive(const Params& p, const Lane<V, G>& l,
   }
 }
 
+// Under a re-mask with a residual: zeros into every inactive row of d_r.
 template <typename T, int V, int G>
+__device__ void zero_inactive_dres(const Params& p, const Lane<V, G>& l,
+                                   const WarpTile& w, long long row0,
+                                   int nt) {
+  if (!l.on) return;
+  Vec<T, V> z;
+#pragma unroll
+  for (int j = 0; j < V; ++j) z.v[j] = from_f<T>(0.f);
+  for (int rl = l.r0; rl < nt; rl += l.Q) {
+    if (w.m[rl]) continue;
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+      if (l.ok[g]) store<T, V, G>(p.dres, row0 + rl, l, g, z);
+  }
+}
+
+template <typename T, int V, int G, bool R>
 __global__ void __launch_bounds__(kThreads) norm_act_apply_kernel(Params p) {
   constexpr int kB = 8 / G;
   __shared__ WarpTile wt[kWarps];
@@ -478,15 +502,18 @@ __global__ void __launch_bounds__(kThreads) norm_act_apply_kernel(Params p) {
     if (compact) zero_inactive<T, V, G>(p, l, w, tr.row0, nt);
     if (l.on) {
       for (int s0 = 0; s0 * l.Q + l.r0 < A; s0 += kB) {
-        Vec<T, V> v[kB][G];
+        Vec<T, V> v[kB][G], rv[R ? kB : 1][G];
 #pragma unroll
         for (int bb = 0; bb < kB; ++bb) {
           const int j = (s0 + bb) * l.Q + l.r0;
           if (j >= A) break;
           const long long r = tr.row(w, j);
 #pragma unroll
-          for (int g = 0; g < G; ++g)
-            if (l.ok[g]) v[bb][g] = load<T, V, G>(p.x, r, l, g);
+          for (int g = 0; g < G; ++g) {
+            if (!l.ok[g]) continue;
+            v[bb][g] = load<T, V, G>(p.x, r, l, g);
+            if constexpr (R) rv[bb][g] = load<T, V, G>(p.res, r, l, g);
+          }
         }
 #pragma unroll
         for (int bb = 0; bb < kB; ++bb) {
@@ -498,10 +525,12 @@ __global__ void __launch_bounds__(kThreads) norm_act_apply_kernel(Params p) {
             if (!l.ok[g]) continue;
             Vec<T, V> o;
 #pragma unroll
-            for (int jj = 0; jj < V; ++jj)
-              o.v[jj] = from_f<T>(act(
-                  pre(to_f(v[bb][g].v[jj]), sh[g][jj], a[g][jj], b[g][jj]),
-                  p.slope));
+            for (int jj = 0; jj < V; ++jj) {
+              float pv =
+                  pre(to_f(v[bb][g].v[jj]), sh[g][jj], a[g][jj], b[g][jj]);
+              if constexpr (R) pv = __fadd_rn(pv, to_f(rv[bb][g].v[jj]));
+              o.v[jj] = from_f<T>(act(pv, p.slope));
+            }
             store<T, V, G>(p.out, r, l, g, o);
           }
         }
@@ -511,7 +540,7 @@ __global__ void __launch_bounds__(kThreads) norm_act_apply_kernel(Params p) {
   }
 }
 
-template <typename T, int V, int G>
+template <typename T, int V, int G, bool R>
 __global__ void __launch_bounds__(kThreads, 2)
     norm_act_bwd_reduce_kernel(Params p) {
   constexpr int kB = 4 / G;
@@ -541,7 +570,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int A = stage(p, w, tr.row0, nt, compact ? kCompact : kNoMask);
     if (l.on) {
       for (int s0 = 0; s0 * l.Q + l.r0 < A; s0 += kB) {
-        Vec<T, V> v[kB][G], d[kB][G];
+        Vec<T, V> v[kB][G], d[kB][G], rv[R ? kB : 1][G];
 #pragma unroll
         for (int bb = 0; bb < kB; ++bb) {
           const int j = (s0 + bb) * l.Q + l.r0;
@@ -552,6 +581,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             if (!l.ok[g]) continue;
             v[bb][g] = load<T, V, G>(p.x, r, l, g);
             d[bb][g] = load<T, V, G>(p.dy, r, l, g);
+            if constexpr (R) rv[bb][g] = load<T, V, G>(p.res, r, l, g);
           }
         }
 #pragma unroll
@@ -563,9 +593,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
             for (int jj = 0; jj < V; ++jj) {
               const float xf = to_f(v[bb][g].v[jj]);
-              const float gj = to_f(d[bb][g].v[jj]) *
-                               dact(pre(xf, sh[g][jj], a[g][jj], b[g][jj]),
-                                    p.slope);
+              float pv = pre(xf, sh[g][jj], a[g][jj], b[g][jj]);
+              if constexpr (R) pv = __fadd_rn(pv, to_f(rv[bb][g].v[jj]));
+              const float gj = to_f(d[bb][g].v[jj]) * dact(pv, p.slope);
               q[0][g][jj] += gj;
               q[1][g][jj] += gj * (xf - sh[g][jj]);
             }
@@ -590,7 +620,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   if (threadIdx.x == 0) *p.ticket = 0;
 }
 
-template <typename T, int V, int G>
+template <typename T, int V, int G, bool R>
 __global__ void __launch_bounds__(kThreads, 2)
     norm_act_bwd_apply_kernel(Params p) {
   constexpr int kB = 4 / G;
@@ -621,10 +651,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     const TileRows tr(t, mode);
     const int nt = tr.count(p);
     const int A = stage(p, w, tr.row0, nt, mode);
-    if (compact) zero_inactive<T, V, G>(p, l, w, tr.row0, nt);
+    if (compact) {
+      zero_inactive<T, V, G>(p, l, w, tr.row0, nt);
+      if constexpr (R) zero_inactive_dres<T, V, G>(p, l, w, tr.row0, nt);
+    }
     if (l.on) {
       for (int s0 = 0; s0 * l.Q + l.r0 < A; s0 += kB) {
-        Vec<T, V> v[kB][G], d[kB][G];
+        Vec<T, V> v[kB][G], d[kB][G], rv[R ? kB : 1][G];
 #pragma unroll
         for (int bb = 0; bb < kB; ++bb) {
           const int j = (s0 + bb) * l.Q + l.r0;
@@ -635,6 +668,7 @@ __global__ void __launch_bounds__(kThreads, 2)
             if (!l.ok[g]) continue;
             v[bb][g] = load<T, V, G>(p.x, r, l, g);
             d[bb][g] = load<T, V, G>(p.dy, r, l, g);
+            if constexpr (R) rv[bb][g] = load<T, V, G>(p.res, r, l, g);
           }
         }
 #pragma unroll
@@ -646,18 +680,20 @@ __global__ void __launch_bounds__(kThreads, 2)
 #pragma unroll
           for (int g = 0; g < G; ++g) {
             if (!l.ok[g]) continue;
-            Vec<T, V> o;
+            Vec<T, V> o, od;
 #pragma unroll
             for (int jj = 0; jj < V; ++jj) {
               const float xf = to_f(v[bb][g].v[jj]);
-              float dd = to_f(d[bb][g].v[jj]) *
-                         dact(pre(xf, sh[g][jj], a[g][jj], b[g][jj]),
-                              p.slope) *
-                         a[g][jj];
+              float pv = pre(xf, sh[g][jj], a[g][jj], b[g][jj]);
+              if constexpr (R) pv = __fadd_rn(pv, to_f(rv[bb][g].v[jj]));
+              const float gj = to_f(d[bb][g].v[jj]) * dact(pv, p.slope);
+              float dd = gj * a[g][jj];
               if (on) dd += c1[g][jj] + c2[g][jj] * xf;
               o.v[jj] = from_f<T>(dd);
+              if constexpr (R) od.v[jj] = from_f<T>(gj);
             }
             store<T, V, G>(p.out, r, l, g, o);
+            if constexpr (R) store<T, V, G>(p.dres, r, l, g, od);
           }
         }
       }
@@ -677,7 +713,7 @@ int sm_count() {
   return count[dev];
 }
 
-template <typename T, int V, int G>
+template <typename T, int V, int G, bool R>
 int launch(int kernel, const Params& p, int part_blocks, cudaStream_t st) {
   // one warp tile a warp at a time; up to 4 blocks an SM (each reducing
   // block writes 2C partials), fewer where the rows run out
@@ -694,13 +730,13 @@ int launch(int kernel, const Params& p, int part_blocks, cudaStream_t st) {
       norm_act_stats_kernel<T, V, G><<<grid, kThreads, 0, st>>>(p);
       break;
     case kApply:
-      norm_act_apply_kernel<T, V, G><<<grid, kThreads, 0, st>>>(p);
+      norm_act_apply_kernel<T, V, G, R><<<grid, kThreads, 0, st>>>(p);
       break;
     case kBwdReduce:
-      norm_act_bwd_reduce_kernel<T, V, G><<<grid, kThreads, 0, st>>>(p);
+      norm_act_bwd_reduce_kernel<T, V, G, R><<<grid, kThreads, 0, st>>>(p);
       break;
     case kBwdApply:
-      norm_act_bwd_apply_kernel<T, V, G><<<grid, kThreads, 0, st>>>(p);
+      norm_act_bwd_apply_kernel<T, V, G, R><<<grid, kThreads, 0, st>>>(p);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -708,10 +744,19 @@ int launch(int kernel, const Params& p, int part_blocks, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+template <typename T, int V, bool R>
+int launch_gr(int kernel, const Params& p, int part_blocks, cudaStream_t st) {
+  return (p.c[0] + p.c[1]) / V > 32
+             ? launch<T, V, 2, R>(kernel, p, part_blocks, st)
+             : launch<T, V, 1, R>(kernel, p, part_blocks, st);
+}
+
 template <typename T, int V>
 int launch_g(int kernel, const Params& p, int part_blocks, cudaStream_t st) {
-  return (p.c[0] + p.c[1]) / V > 32 ? launch<T, V, 2>(kernel, p, part_blocks, st)
-                                    : launch<T, V, 1>(kernel, p, part_blocks, st);
+  // the stats kernel never reads the residual: one instance serves both
+  return p.res[0] != nullptr && kernel != kStats
+             ? launch_gr<T, V, true>(kernel, p, part_blocks, st)
+             : launch_gr<T, V, false>(kernel, p, part_blocks, st);
 }
 
 }  // namespace
@@ -732,13 +777,16 @@ int norm_act_vector(int c0, int c1, int elem_bytes) {
 
 // One kernel (0 stats, 1 apply, 2 bwd reduce, 3 bwd apply) over `rows` rows
 // of the halves x0 (rows, c0) and x1 (rows, c1; null with c1 = 0), bf16
-// (bf16 = 1) or f32; dy and out likewise; mask (rows,) uint8 or null;
+// (bf16 = 1) or f32; dy and out likewise; res (rows, c0) a residual or null
+// (only with c1 = 0), dres its gradient (bwd apply; null without res);
+// mask (rows,) uint8 or null;
 // scale, bias, run_mean, run_var (C,) f32; stats (5, C) and grads (4, C)
 // f32; part holds part_blocks * (2C + 2) floats; ticket one unsigned, 0.
 // Returns a cudaError_t (0 = launched).
 int norm_act_launch(int kernel, const void* x0, const void* x1,
                     const void* dy0, const void* dy1, void* out0, void* out1,
-                    int c0, int c1, long long rows, const void* mask,
+                    const void* res, void* dres, int c0, int c1,
+                    long long rows, const void* mask,
                     const void* scale, const void* bias, const void* run_mean,
                     const void* run_var, void* stats, void* grads, void* part,
                     void* ticket, int part_blocks, float slope, float eps,
@@ -747,11 +795,13 @@ int norm_act_launch(int kernel, const void* x0, const void* x1,
   const int es = bf16 ? 2 : 4;
   int v = norm_act_vector(c0, c1, es);
   if (v == 0 || rows < 0 || part_blocks < 1 || kernel < 0 || kernel > 3 ||
-      (c1 > 0) != (x1 != nullptr))
+      (c1 > 0) != (x1 != nullptr) || (res != nullptr && c1 > 0) ||
+      (kernel == kBwdApply && (res != nullptr) != (dres != nullptr)))
     return (int)cudaErrorInvalidValue;
   // narrower vectors where a base address is less aligned
   const uintptr_t addr = (uintptr_t)x0 | (uintptr_t)x1 | (uintptr_t)dy0 |
-                         (uintptr_t)dy1 | (uintptr_t)out0 | (uintptr_t)out1;
+                         (uintptr_t)dy1 | (uintptr_t)out0 | (uintptr_t)out1 |
+                         (uintptr_t)res | (uintptr_t)dres;
   while (v > 1 && addr % (uintptr_t)(v * es) != 0) v /= 2;
   if ((c0 + c1) / v > 64) return (int)cudaErrorInvalidValue;
   Params p;
@@ -761,6 +811,8 @@ int norm_act_launch(int kernel, const void* x0, const void* x1,
   p.dy[1] = dy1;
   p.out[0] = out0;
   p.out[1] = out1;
+  p.res[0] = p.res[1] = res;
+  p.dres[0] = p.dres[1] = dres;
   p.c[0] = c0;
   p.c[1] = c1;
   p.rows = rows;

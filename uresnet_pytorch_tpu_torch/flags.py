@@ -17,7 +17,7 @@ def _add_shared(p: argparse.ArgumentParser) -> None:
     d = URESNetConfig.__dataclass_fields__
     # model
     p.add_argument("--model-name", "-mn", type=str, default=d["model_name"].default,
-                   help="uresnet_sparse | uresnet_dense")
+                   help="uresnet_sparse | uresnet_dense | minkunet34c")
     p.add_argument("--num-class", "-nc", type=int, default=d["num_class"].default)
     p.add_argument("--uresnet-filters", "-uf", type=int, default=d["uresnet_filters"].default)
     p.add_argument("--uresnet-num-strides", "-uns", type=int, default=d["uresnet_num_strides"].default)

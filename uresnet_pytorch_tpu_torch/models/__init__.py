@@ -19,6 +19,7 @@ def construct(name: str):
     nn.Module whose forward(coords, values, n_voxels) gives
     ((B, V, num_class) per-voxel logits, diag counters)."""
     # import for registration side effects
+    import uresnet_pytorch_tpu_torch.models.minkunet_tiled  # noqa: F401
     import uresnet_pytorch_tpu_torch.models.uresnet_dense  # noqa: F401
     import uresnet_pytorch_tpu_torch.models.uresnet_sparse  # noqa: F401
     if name not in _MODELS:

@@ -45,10 +45,10 @@ _SIGNATURES = {
     "halo_conv_dw_plan": [_I, _I, _I, _I, _I],
     "link_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "link_parent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "halo_extend": [_P, _P, _P, _P, _P] + [_I] * 10 + [_P],
-    "halo_transpose": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    "halo_extend": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],
+    "halo_transpose": [_P, _P, _P, _P, _P] + [_I] * 12 + [_P],
     "norm_act_vector": [_I, _I, _I],
-    "norm_act_launch": [_I] + [_P] * 6 + [_I, _I, ctypes.c_longlong]
+    "norm_act_launch": [_I] + [_P] * 8 + [_I, _I, ctypes.c_longlong]
     + [_P] * 9 + [_I, ctypes.c_float, ctypes.c_float] + [_I] * 4 + [_P],
 }
 

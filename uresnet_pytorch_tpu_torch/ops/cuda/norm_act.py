@@ -1,6 +1,6 @@
 """Batch norm, its activation and its re-mask as one operator.
 
-    y = act(BN(x)) [* mask]     act(v) = where(v >= 0, v, slope * v)
+    y = act(BN(x) [+ r]) [* mask]     act(v) = where(v >= 0, v, slope * v)
 
 over rows of C channels: the tile engine's (B, T, cells, C), a dense
 (B, C, *S) volume in channels-last memory (`cdim=1`), or a pair of tensors
@@ -19,6 +19,14 @@ eval mode the running moments. Two flavours of the same algorithm:
 the bias would leak nonzeros into the inactive cells of the dense tile
 interiors). Every output and input gradient of an inactive row is then 0,
 which the kernels write without reading the row.
+
+An optional residual `r` of x's shape and dtype (one tensor, no pair) is
+added between the BN and the activation: a post-activation residual
+block's `relu(bn2(conv2(.)) + shortcut)` (`models/minkunet_tiled.py`). The
+forward's apply kernel reads it, and the backward's kernels read it too
+(for act'(v)); the backward's apply writes its gradient d_r = dy act'(v)
+[* mask]. A slope of 1 makes act the identity: the BN of a projection
+shortcut. Without `r` the operator runs the same kernels as before.
 
 `norm_act` is the entry point. For a CPU tensor it runs the plain torch
 chain the models ran before this operator (`chain_plain`, bitwise), for a
@@ -144,11 +152,15 @@ def flax_bn_plain(x, scale, bias, mean, var, eps: float, mesh, train: bool,
 
 def chain_plain(x, mask, scale, bias, mean, var, *, train: bool,
                 remask: bool, folded: bool, slope: float, eps: float,
-                dtype: torch.dtype, mesh=None, cdim: int = -1):
+                dtype: torch.dtype, mesh=None, cdim: int = -1,
+                residual=None):
     """The plain torch chain: BN (`masked_bn_plain` or `flax_bn_plain`),
-    the activation, the cast to `dtype`, the re-mask. Returns (y, the
-    batch moments or None); y a pair for a pair."""
+    plus the residual (in the BN's output dtype), the activation, the cast
+    to `dtype`, the re-mask. Returns (y, the batch moments or None); y a
+    pair for a pair."""
     pair = isinstance(x, tuple)
+    if pair and residual is not None:
+        raise ValueError("norm_act: a residual takes no pair")
     if folded:
         ys, moments = masked_bn_plain(x if pair else (x,), mask, scale,
                                       bias, mean, var, eps, mesh, train)
@@ -158,6 +170,8 @@ def chain_plain(x, mask, scale, bias, mean, var, *, train: bool,
         y, moments = flax_bn_plain(x, scale, bias, mean, var, eps, mesh,
                                    train, cdim)
         ys = (y,)
+    if residual is not None:
+        ys = (ys[0] + residual.to(ys[0].dtype),)
     ys = tuple(_act(y, slope).to(dtype) for y in ys)
     if remask:
         occ = mask[..., None].to(dtype)
@@ -225,33 +239,40 @@ def _slices(x, x2, *vecs) -> list:
     return out
 
 
-def apply_plain(x, x2, mask, sh, a, b, slope: float, remask: bool) -> list:
-    """act((x - sh) * a + b) [* mask] per half, in x's dtype."""
+def _pre(xf, sh, a, b, r):
+    """The pre-activation (x - sh) a + b [+ r] in f32."""
+    v = (xf - sh) * a + b
+    return v if r is None else v + r.to(v.dtype)
+
+
+def apply_plain(x, x2, mask, sh, a, b, slope: float, remask: bool,
+                r=None) -> list:
+    """act((x - sh) * a + b [+ r]) [* mask] per half, in x's dtype."""
     out = []
     for p, (sh_, a_, b_) in zip(_halves(x, x2), _slices(x, x2, sh, a, b)):
-        y = _act((p.to(a.dtype) - sh_) * a_ + b_, slope)
+        y = _act(_pre(p.to(a.dtype), sh_, a_, b_, r), slope)
         if remask and mask is not None:
             y = y * mask[..., None].to(y.dtype)
         out.append(y.to(p.dtype))
     return out
 
 
-def _grad_rows(dy, p, mask, sh, a, b, slope, remask):
+def _grad_rows(dy, p, mask, sh, a, b, slope, remask, r=None):
     """g = dy act'(v) (times the mask under remask) and x - sh, in f32."""
     xf = p.to(a.dtype)
-    g = dy.to(a.dtype) * _dact((xf - sh) * a + b, slope)
+    g = dy.to(a.dtype) * _dact(_pre(xf, sh, a, b, r), slope)
     if remask and mask is not None:
         g = g * mask[..., None].to(g.dtype)
     return g, xf
 
 
 def bwd_reduce_plain(dy, dy2, x, x2, mask, sh, a, b, scale, mean, inv,
-                     slope: float, remask: bool, folded: bool):
+                     slope: float, remask: bool, folded: bool, r=None):
     """(4, C): sum g, sum g (x - sh), then this rank's d_scale, d_bias."""
     sums = []
     for p, d, (sh_, a_, b_) in zip(_halves(x, x2), _halves(dy, dy2),
                                    _slices(x, x2, sh, a, b)):
-        g, xf = _grad_rows(d, p, mask, sh_, a_, b_, slope, remask)
+        g, xf = _grad_rows(d, p, mask, sh_, a_, b_, slope, remask, r)
         sums.append(torch.stack([_rows(g).sum(0),
                                  _rows(g * (xf - sh_)).sum(0)]))
     gb, gx = torch.cat(sums, 1)
@@ -281,17 +302,20 @@ def stat_grads_plain(grads, scale, mean, raw, cnt, inv, train: bool,
 
 
 def bwd_apply_plain(dy, dy2, x, x2, mask, sh, a, b, c1, c2, slope: float,
-                    remask: bool) -> list:
-    """dx = g a + m (c1 + c2 x) per half, in x's dtype."""
+                    remask: bool, r=None) -> list:
+    """dx = g a + m (c1 + c2 x) per half, in x's dtype; with a residual r,
+    then d_r = g in r's dtype."""
     out = []
     for p, d, (sh_, a_, b_, c1_, c2_) in zip(
             _halves(x, x2), _halves(dy, dy2),
             _slices(x, x2, sh, a, b, c1, c2)):
-        g, xf = _grad_rows(d, p, mask, sh_, a_, b_, slope, remask)
+        g, xf = _grad_rows(d, p, mask, sh_, a_, b_, slope, remask, r)
         st = c1_ + c2_ * xf
         if mask is not None:
             st = st * mask[..., None].to(st.dtype)
         out.append((g * a_ + st).to(p.dtype))
+        if r is not None:
+            out.append(g.to(r.dtype))
     return out
 
 
@@ -326,7 +350,7 @@ def _ticket(device: torch.device, stream: int) -> torch.Tensor:
     return t
 
 
-def _check(x, x2, mask, scale, bias, run_mean, run_var) -> None:
+def _check(x, x2, mask, scale, bias, run_mean, run_var, r=None) -> None:
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"norm_act: unsupported device {dev}")
@@ -345,6 +369,12 @@ def _check(x, x2, mask, scale, bias, run_mean, run_var) -> None:
               x.element_size()) == 0:
         raise ValueError(f"norm_act: no plan for channels "
                          f"{[p.shape[-1] for p in halves]} of {x.dtype}")
+    if r is not None and (x2 is not None or r.dtype != x.dtype
+                          or r.device != dev or r.shape != x.shape
+                          or not r.is_contiguous()):
+        raise ValueError(f"norm_act: the residual must be contiguous "
+                         f"{tuple(x.shape)} {x.dtype} on {dev}, with no "
+                         f"pair")
     if mask is not None and (mask.dtype != torch.bool or mask.device != dev
                              or mask.shape != x.shape[:-1]
                              or not mask.is_contiguous()):
@@ -361,7 +391,7 @@ def _check(x, x2, mask, scale, bias, run_mean, run_var) -> None:
 
 def _launch(kernel: int, x, x2, dy, dy2, out, out2, mask, scale, bias,
             run_mean, run_var, stats, grads, slope, eps, train, folded,
-            remask) -> None:
+            remask, r=None, dr=None) -> None:
     global launches_fwd, launches_bwd
     C = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
     blocks = _part_blocks(x.device)
@@ -375,7 +405,8 @@ def _launch(kernel: int, x, x2, dy, dy2, out, out2, mask, scale, bias,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = cuda.library().norm_act_launch(
         kernel, ptr(x), ptr(x2), ptr(dy), ptr(dy2), ptr(out), ptr(out2),
-        x.shape[-1], 0 if x2 is None else x2.shape[-1], rows, ptr(mask),
+        ptr(r), ptr(dr), x.shape[-1], 0 if x2 is None else x2.shape[-1],
+        rows, ptr(mask),
         ptr(scale), ptr(bias), ptr(run_mean), ptr(run_var), ptr(stats),
         ptr(grads), ptr(part), _ticket(x.device, stream).data_ptr(), blocks,
         float(slope), float(eps), int(train), int(folded), int(remask),
@@ -393,7 +424,7 @@ def _all_reduce(t: torch.Tensor, group: int) -> None:
 
 
 def _forward_plain(x, x2, mask, scale, bias, run_mean, run_var, train,
-                   remask, folded, slope, eps, group):
+                   remask, folded, slope, eps, group, r=None):
     """`_forward` by the kernels' plain versions, on any device."""
     stats = None
     if train:
@@ -401,7 +432,7 @@ def _forward_plain(x, x2, mask, scale, bias, run_mean, run_var, train,
         _all_reduce(stats, group)
     mean, var, _, _ = moments_plain(stats, run_mean, run_var, train)
     sh, a, b, _ = coef_plain(mean, var, scale, bias, eps, folded, x.dtype)
-    ys = apply_plain(x, x2, mask, sh, a, b, slope, remask)
+    ys = apply_plain(x, x2, mask, sh, a, b, slope, remask, r)
     if train:
         stats = torch.cat([stats, torch.stack([mean, var])])
     return ys[0], ys[1] if x2 is not None else x.new_empty(0), \
@@ -409,15 +440,15 @@ def _forward_plain(x, x2, mask, scale, bias, run_mean, run_var, train,
 
 
 def _forward(x, x2, mask, scale, bias, run_mean, run_var, train, remask,
-             folded, slope, eps, group):
+             folded, slope, eps, group, r=None):
     """(y, y2 or an empty tensor, stats (5, C) or an empty tensor): the
     kernels for a CUDA tensor, their plain versions for a CPU one."""
     if x.device.type == "cpu":
         return _forward_plain(x, x2, mask, scale, bias, run_mean, run_var,
-                              train, remask, folded, slope, eps, group)
+                              train, remask, folded, slope, eps, group, r)
     C = x.shape[-1] + (0 if x2 is None else x2.shape[-1])
     empty = x.new_empty(0)
-    _check(x, x2, mask, scale, bias, run_mean, run_var)
+    _check(x, x2, mask, scale, bias, run_mean, run_var, r)
     y, y2 = torch.empty_like(x), None if x2 is None else torch.empty_like(x2)
     stats = x.new_empty((5, C), dtype=torch.float32) if train else None
     with torch.cuda.device(x.device):
@@ -427,48 +458,50 @@ def _forward(x, x2, mask, scale, bias, run_mean, run_var, train, remask,
                     remask)
             _all_reduce(stats[:3], group)
         _launch(APPLY, x, x2, None, None, y, y2, mask, scale, bias, run_mean,
-                run_var, stats, None, slope, eps, train, folded, remask)
+                run_var, stats, None, slope, eps, train, folded, remask, r)
     return y, empty if y2 is None else y2, \
         x.new_empty(0, dtype=torch.float32) if stats is None else stats
 
 
 def _backward_plain(dy, dy2, x, x2, mask, scale, bias, run_mean, run_var,
-                    stats, train, remask, folded, slope, eps, group):
+                    stats, train, remask, folded, slope, eps, group, r=None):
     """`_backward` by the kernels' plain versions, on any device."""
     mean, var, raw, cnt = moments_plain(stats, run_mean, run_var, train)
     sh, a, b, inv = coef_plain(mean, var, scale, bias, eps, folded, x.dtype)
     grads = bwd_reduce_plain(dy, dy2, x, x2, mask, sh, a, b, scale, mean,
-                             inv, slope, remask, folded)
+                             inv, slope, remask, folded, r)
     _all_reduce(grads[:2], group)
     c1, c2 = stat_grads_plain(grads, scale, mean, raw, cnt, inv, train,
                               folded)
     dxs = bwd_apply_plain(dy, dy2, x, x2, mask, sh, a, b, c1, c2, slope,
-                          remask)
-    return dxs[0], dxs[1] if x2 is not None else None, grads[2], grads[3]
+                          remask, r)
+    return (dxs[0], dxs[1] if x2 is not None else None, grads[2], grads[3],
+            dxs[1] if r is not None else None)
 
 
 def _backward(dy, dy2, x, x2, mask, scale, bias, run_mean, run_var, stats,
-              train, remask, folded, slope, eps, group):
-    """(dx, dx2 or None, d_scale, d_bias): the kernels for a CUDA tensor,
-    their plain versions for a CPU one."""
+              train, remask, folded, slope, eps, group, r=None):
+    """(dx, dx2 or None, d_scale, d_bias, d_r or None): the kernels for a
+    CUDA tensor, their plain versions for a CPU one."""
     if x.device.type == "cpu":
         return _backward_plain(dy, dy2, x, x2, mask, scale, bias, run_mean,
                                run_var, stats, train, remask, folded, slope,
-                               eps, group)
+                               eps, group, r)
     C = scale.shape[0]
     grads = x.new_empty((4, C), dtype=torch.float32)
     dx, dx2 = torch.empty_like(x), None if x2 is None else torch.empty_like(x2)
+    dr = None if r is None else torch.empty_like(r)
     st = stats if train else None
     with torch.cuda.device(x.device):
         _launch(BWD_REDUCE, x, x2, dy, dy2, None, None, mask, scale, bias,
                 run_mean, run_var, st, grads, slope, eps, train, folded,
-                remask)
+                remask, r)
         # the sums over the mesh; d_scale and d_bias stay this rank's
         _all_reduce(grads[:2], group)
         _launch(BWD_APPLY, x, x2, dy, dy2, dx, dx2, mask, scale, bias,
                 run_mean, run_var, st, grads, slope, eps, train, folded,
-                remask)
-    return dx, dx2, grads[2], grads[3]
+                remask, r, dr)
+    return dx, dx2, grads[2], grads[3], dr
 
 
 @torch.library.custom_op("uresnet_torch::norm_act", mutates_args=())
@@ -476,38 +509,43 @@ def norm_act_op(x: torch.Tensor, x2: Optional[torch.Tensor],
                 mask: Optional[torch.Tensor], scale: torch.Tensor,
                 bias: torch.Tensor, run_mean: torch.Tensor,
                 run_var: torch.Tensor, train: bool, remask: bool,
-                folded: bool, slope: float, eps: float,
-                group: int) -> Tuple[torch.Tensor, torch.Tensor,
-                                     torch.Tensor]:
+                folded: bool, slope: float, eps: float, group: int,
+                r: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(y, y2, stats): y2 empty without x2; stats (5, C) f32 in train (the
     mesh-wide s1, s2, n, then mean and var), empty in eval. x (and x2)
     contiguous (..., C_i), mask (...) bool or None; group a process group
-    by `_group_id` (0: none)."""
+    by `_group_id` (0: none); r None or a residual of x's shape, added
+    before the activation."""
     return _forward(x, x2, mask, scale, bias, run_mean, run_var, train,
-                    remask, folded, slope, eps, group)
+                    remask, folded, slope, eps, group, r)
 
 
 def _setup_context(ctx, inputs, output):
     (x, x2, mask, scale, bias, run_mean, run_var, train, remask, folded,
-     slope, eps, group) = inputs
+     slope, eps, group, r) = inputs
     ctx.save_for_backward(x, x2, mask, scale, bias, run_mean, run_var,
-                          output[2])
+                          output[2], r)
     ctx.flags = (train, remask, folded, slope, eps, group)
     ctx.mark_non_differentiable(output[2])
 
 
 def _op_backward(ctx, dy, dy2, _):
-    x, x2, mask, scale, bias, run_mean, run_var, stats = ctx.saved_tensors
+    (x, x2, mask, scale, bias, run_mean, run_var, stats,
+     r) = ctx.saved_tensors
     train, remask, folded, slope, eps, group = ctx.flags
     dy = dy.contiguous()
     dy2 = None if x2 is None else dy2.contiguous()
-    dx, dx2, d_scale, d_bias = _backward(
+    dx, dx2, d_scale, d_bias, d_r = _backward(
         dy, dy2, x, x2, mask, scale, bias, run_mean, run_var, stats, train,
-        remask, folded, slope, eps, group)
+        remask, folded, slope, eps, group, r)
     need = ctx.needs_input_grad
+    # the dispatcher drops a trailing r left at its default: one gradient
+    # an input it passed
     return (dx if need[0] else None, dx2 if need[1] else None, None,
             d_scale if need[3] else None, d_bias if need[4] else None,
-            None, None, None, None, None, None, None, None)
+            None, None, None, None, None, None, None,
+            None) + ((d_r if need[13] else None,) if len(need) > 13 else ())
 
 
 norm_act_op.register_autograd(_op_backward, setup_context=_setup_context)
@@ -515,29 +553,30 @@ norm_act_op.register_autograd(_op_backward, setup_context=_setup_context)
 
 def norm_act(x, mask, scale, bias, run_mean, run_var, *, train: bool,
              remask: bool, folded: bool, slope: float, eps: float,
-             dtype: torch.dtype, mesh=None, cdim: int = -1):
-    """y = act(BN(x)) in `dtype` [* mask] and the batch moments (train; None
-    in eval). x (..., C), or a pair for a channel concat (y a pair then),
-    or with `cdim` the channel axis of a channels-last volume; mask (...)
-    bool, or None for every row (required for `remask`). The plain chain
-    for a CPU tensor; the kernels for a CUDA tensor, or raises (on any
-    layout but rows of contiguous channels too: the kernels copy
-    nothing)."""
+             dtype: torch.dtype, mesh=None, cdim: int = -1, residual=None):
+    """y = act(BN(x) [+ residual]) in `dtype` [* mask] and the batch
+    moments (train; None in eval). x (..., C), or a pair for a channel
+    concat (y a pair then), or with `cdim` the channel axis of a
+    channels-last volume; mask (...) bool, or None for every row (required
+    for `remask`); residual None or a tensor of x's shape and dtype (not
+    with a pair). The plain chain for a CPU tensor; the kernels for a CUDA
+    tensor, or raises (on any layout but rows of contiguous channels too:
+    the kernels copy nothing)."""
     if (x[0] if isinstance(x, tuple) else x).device.type == "cpu":
         return chain_plain(x, mask, scale, bias, run_mean, run_var,
                            train=train, remask=remask, folded=folded,
                            slope=slope, eps=eps, dtype=dtype, mesh=mesh,
-                           cdim=cdim)
+                           cdim=cdim, residual=residual)
     return norm_act_via_op(x, mask, scale, bias, run_mean, run_var,
                            train=train, remask=remask, folded=folded,
                            slope=slope, eps=eps, dtype=dtype, mesh=mesh,
-                           cdim=cdim)
+                           cdim=cdim, residual=residual)
 
 
 def norm_act_via_op(x, mask, scale, bias, run_mean, run_var, *,
                     train: bool, remask: bool, folded: bool, slope: float,
                     eps: float, dtype: torch.dtype, mesh=None,
-                    cdim: int = -1):
+                    cdim: int = -1, residual=None):
     """`norm_act` through the operator on any device: the kernels on the
     card, their plain versions on the CPU (which the tests hold to the
     chain's autograd)."""
@@ -546,16 +585,19 @@ def norm_act_via_op(x, mask, scale, bias, run_mean, run_var, *,
         raise ValueError("norm_act: remask needs a mask")
     if pair and not folded:
         raise ValueError("norm_act: the flax BN takes no pair")
+    if pair and residual is not None:
+        raise ValueError("norm_act: a residual takes no pair")
     parts = x if pair else (x,)
     xs = tuple(p.movedim(cdim, -1) for p in parts)
     if not all(p.is_contiguous() for p in xs):
         raise ValueError(f"norm_act: x must hold its channels (axis {cdim}) "
                          f"contiguous, as channels-last memory does; got "
                          f"strides {[p.stride() for p in parts]}")
+    r = None if residual is None else residual.movedim(cdim, -1)
     y, y2, stats = torch.ops.uresnet_torch.norm_act(
         xs[0], xs[1] if pair else None, mask, scale, bias, run_mean,
         run_var, train, remask, folded, float(slope), float(eps),
-        _group_id(mesh))
+        _group_id(mesh), r)
     moments = (stats[3].detach(), stats[4].detach()) if train else None
     ys = tuple(p.movedim(-1, cdim).to(dtype) for p in
                ((y, y2) if pair else (y,)))

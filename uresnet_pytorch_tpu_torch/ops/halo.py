@@ -35,44 +35,56 @@ def halo_offsets(dim: int) -> tuple:
     return tuple(offs)
 
 
+def _check_halo(t: int, h: int) -> None:
+    # a halo of h reads h cells of each of the 26 neighbor tiles: wider
+    # than a tile it would need the tiles beyond them
+    if h not in (1, 2) or h > t:
+        raise ValueError(f"halo width {h} on tiles of {t}: need h in "
+                         f"(1, 2) and h <= t")
+
+
 @lru_cache(maxsize=None)
-def slab_cells(delta: tuple, t: int):
-    """Static cell geometry for one neighbor offset.
+def slab_cells(delta: tuple, t: int, h: int = 1):
+    """Static cell geometry for one neighbor offset, at halo width h.
 
     Returns (ext_cells, src_cells) int64 arrays of length S: positions in
-    the (t+2)^dim halo-extended tile (row-major, last axis fastest) that
+    the (t+2h)^dim halo-extended tile (row-major, last axis fastest) that
     offset `delta` fills, and the matching positions in the neighbor's
-    t^dim tile."""
+    t^dim tile: its h facing layers along each axis where delta is
+    nonzero."""
+    _check_halo(t, h)
     dim = len(delta)
     axes_ext, axes_src = [], []
     for d in delta:
         if d == -1:
-            axes_ext.append(np.array([0]))
-            axes_src.append(np.array([t - 1]))
+            axes_ext.append(np.arange(h))
+            axes_src.append(np.arange(t - h, t))
         elif d == 1:
-            axes_ext.append(np.array([t + 1]))
-            axes_src.append(np.array([0]))
+            axes_ext.append(np.arange(t + h, t + 2 * h))
+            axes_src.append(np.arange(h))
         else:
-            axes_ext.append(np.arange(1, t + 1))
+            axes_ext.append(np.arange(h, t + h))
             axes_src.append(np.arange(t))
     eg = np.stack(np.meshgrid(*axes_ext, indexing="ij"), -1).reshape(-1, dim)
     sg = np.stack(np.meshgrid(*axes_src, indexing="ij"), -1).reshape(-1, dim)
     ext_cells = np.zeros(len(eg), np.int64)
     src_cells = np.zeros(len(sg), np.int64)
     for a in range(dim):
-        ext_cells = ext_cells * (t + 2) + eg[:, a]
+        ext_cells = ext_cells * (t + 2 * h) + eg[:, a]
         src_cells = src_cells * t + sg[:, a]
     return ext_cells, src_cells
 
 
 @lru_cache(maxsize=None)
-def body_cells(t: int, dim: int) -> np.ndarray:
-    """Ext positions of the tile's own t^dim cells (offset zero)."""
-    g = np.stack(np.meshgrid(*([np.arange(1, t + 1)] * dim),
+def body_cells(t: int, dim: int, h: int = 1) -> np.ndarray:
+    """Ext positions of the tile's own t^dim cells (offset zero) in the
+    (t+2h)^dim extended tile."""
+    _check_halo(t, h)
+    g = np.stack(np.meshgrid(*([np.arange(h, t + h)] * dim),
                              indexing="ij"), -1).reshape(-1, dim)
     cells = np.zeros(len(g), np.int64)
     for a in range(dim):
-        cells = cells * (t + 2) + g[:, a]
+        cells = cells * (t + 2 * h) + g[:, a]
     return cells
 
 
@@ -102,20 +114,21 @@ def build_halo26(keys: torch.Tensor, grid: int, dim: int) -> Halo26Spec:
 
 
 def halo26_extend(x: torch.Tensor, spec: Halo26Spec, t: int,
-                  dim: int) -> torch.Tensor:
-    """Exact halo extend: (B, T, t^dim, C) -> (B, T, (t+2)^dim, C).
+                  dim: int, h: int = 1) -> torch.Tensor:
+    """Exact halo extend: (B, T, t^dim, C) -> (B, T, (t+2h)^dim, C).
 
     Port of `halo26_extend_xla`: one row gather per offset, zeros where
-    the neighbor is missing."""
+    the neighbor is missing. A halo of h = 2 (a 5^dim stencil) reads two
+    layers of the same 26 neighbors, so t >= 2 keeps the tile graph."""
     B, T, cells, C = x.shape
-    ext = x.new_zeros(B, T, (t + 2) ** dim, C)
+    ext = x.new_zeros(B, T, (t + 2 * h) ** dim, C)
     dev = x.device
-    ext[:, :, torch.as_tensor(body_cells(t, dim), device=dev)] = x
+    ext[:, :, torch.as_tensor(body_cells(t, dim, h), device=dev)] = x
     # row T is all zeros: missing neighbors read it
     xp = torch.cat([x, x.new_zeros(B, 1, cells, C)], 1)
     bidx = torch.arange(B, device=dev)[:, None]
     for k, off in enumerate(halo_offsets(dim)):
-        ecells, scells = slab_cells(off, t)
+        ecells, scells = slab_cells(off, t, h)
         rows = torch.where(spec.ok[:, k], spec.idx[:, k], T).long()
         slab = xp[:, :, torch.as_tensor(scells, device=dev)][bidx, rows]
         ext[:, :, torch.as_tensor(ecells, device=dev)] = slab
@@ -123,8 +136,8 @@ def halo26_extend(x: torch.Tensor, spec: Halo26Spec, t: int,
 
 
 def halo26_transpose(g: torch.Tensor, spec: Halo26Spec, t: int,
-                     dim: int) -> torch.Tensor:
-    """Exact transpose of `halo26_extend`: (B, T, (t+2)^dim, C) cotangent
+                     dim: int, h: int = 1) -> torch.Tensor:
+    """Exact transpose of `halo26_extend`: (B, T, (t+2h)^dim, C) cotangent
     -> (B, T, t^dim, C).
 
     Port of `halo26_transpose_xla`: the body cells, then per offset k in
@@ -133,11 +146,11 @@ def halo26_transpose(g: torch.Tensor, spec: Halo26Spec, t: int,
     B, T, ecells, C = g.shape
     K = 3 ** dim - 1
     dev = g.device
-    d_x = g[:, :, torch.as_tensor(body_cells(t, dim), device=dev)]
+    d_x = g[:, :, torch.as_tensor(body_cells(t, dim, h), device=dev)]
     gp = torch.cat([g, g.new_zeros(B, 1, ecells, C)], 1)
     bidx = torch.arange(B, device=dev)[:, None]
     for k, off in enumerate(halo_offsets(dim)):
-        ecells_k, scells = slab_cells(off, t)
+        ecells_k, scells = slab_cells(off, t, h)
         rows = torch.where(spec.ok[:, K - 1 - k], spec.idx[:, K - 1 - k],
                            T).long()
         slab = gp[:, :, torch.as_tensor(ecells_k, device=dev)][bidx, rows]

@@ -110,18 +110,30 @@ def _fused(x: torch.Tensor, t: int, dim: int, Cout: int, dx: bool = False,
             and not (dw and dw_plan(t, dim, Cin, Cout) is None))
 
 
-def _valid_conv(ext: torch.Tensor, w, t: int, dim: int) -> torch.Tensor:
-    """One 3^dim VALID conv over halo-extended tiles (B, T, (t+2)^dim, Cin)
-    -> (B, T, t^dim, Cout), in ext's dtype with f32 sums: the reference's
-    `lax.conv_general_dilated` (`tile_conv.py:251`), here a torch conv on a
-    channels-last view. In float32 it runs without TF32, as the reference's
-    f32 conv; the flag is set around this call only, so a backward through
-    it follows the caller's setting."""
+def kernel_extent(w, dim: int) -> int:
+    """The edge k of a stencil weight (k^dim, Cin, Cout): 3 for the
+    submanifold convs, 5 for a 5^dim stem."""
+    k = round(w.shape[0] ** (1.0 / dim))
+    if k ** dim != w.shape[0] or k % 2 == 0:
+        raise ValueError(f"a stencil weight of {w.shape[0]} offsets is no "
+                         f"odd k^{dim}")
+    return k
+
+
+def _valid_conv(ext: torch.Tensor, w, t: int, dim: int,
+                k: int = 3) -> torch.Tensor:
+    """One k^dim VALID conv over halo-extended tiles (B, T, (t+k-1)^dim,
+    Cin) -> (B, T, t^dim, Cout), in ext's dtype with f32 sums: the
+    reference's `lax.conv_general_dilated` (`tile_conv.py:251`), here a
+    torch conv on a channels-last view. w is (k^dim, Cin, Cout), offsets
+    row-major over (-k//2 .. k//2)^dim. In float32 it runs without TF32,
+    as the reference's f32 conv; the flag is set around this call only, so
+    a backward through it follows the caller's setting."""
     B, T, _, Cin = ext.shape
     Cout = w.shape[-1]
-    xin = ext.reshape((B * T,) + (t + 2,) * dim + (Cin,)).movedim(-1, 1)
+    xin = ext.reshape((B * T,) + (t + k - 1,) * dim + (Cin,)).movedim(-1, 1)
     fmt = torch.channels_last_3d if dim == 3 else torch.channels_last
-    kern = w.to(ext.dtype).reshape((3,) * dim + (Cin, Cout)).permute(
+    kern = w.to(ext.dtype).reshape((k,) * dim + (Cin, Cout)).permute(
         (dim + 1, dim) + tuple(range(dim))).contiguous(memory_format=fmt)
     conv = F.conv3d if dim == 3 else F.conv2d
     cudnn = torch.backends.cudnn
@@ -145,7 +157,11 @@ def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
     x may be a pair (x1, x2) standing for their channel concat (the
     decoder's skip): the conv is linear in Cin, so the pair runs as two
     convs against the matching row slices of w, summed in f32 and rounded
-    once, with no (B, T, cells, C1 + C2) concat in memory."""
+    once, with no (B, T, cells, C1 + C2) concat in memory.
+
+    A stencil wider than 3^dim (w (5^dim, Cin, Cout): MinkUNet's stem)
+    always takes the unfused path, its extend at a halo of 2: kernels B
+    and C plan the 3^dim stencil only."""
     if isinstance(x, tuple):
         x1, x2 = x
         C1 = x1.shape[-1]
@@ -153,8 +169,13 @@ def submanifold_conv_tiled(x, occ, halo: Halo26Spec, t: int, dim: int,
         o2 = submanifold_conv_tiled(x2, occ, halo, t, dim, w[:, C1:])
         return (o1.float() + o2.float()).to(o1.dtype)
     grad = torch.is_grad_enabled()
-    if _fused(x, t, dim, w.shape[-1], dx=grad and x.requires_grad,
-              dw=grad and w.requires_grad):
+    k = kernel_extent(w, dim)
+    if k != 3:
+        ext = halo26_extend_op(x.contiguous(), halo.idx, halo.ok, t, dim,
+                               k // 2)
+        out = _valid_conv(ext, w, t, dim, k)
+    elif _fused(x, t, dim, w.shape[-1], dx=grad and x.requires_grad,
+                dw=grad and w.requires_grad):
         out = halo_conv_op(x.contiguous(), w.to(x.dtype).contiguous(),
                            halo.idx, halo.ok, halo.blive, t, dim)
     else:
