@@ -155,11 +155,15 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    projection's BN), timed beside the same kernels without r; kernels D
    and E at a halo of 2 (the 5^3 stem), bitwise against their plain
    versions on real maps (t=4 at C=1 bf16 and f32 and C=32, t=2 at C=32:
-   E's 32-entry table); then the whole model at its published widths on
-   one 512^3 batch: eval logits and one train step (stage_dots) on the
-   kernels against the plain versions (phase 2's and phase 4's bounds),
-   the kernel launches of a step, and three timed steps at batch 8 with
-   their peak memory.
+   E's 32-entry table); kernel B's wide path (`kernel_plan`'s ring > 0)
+   at every conv of the model that takes it (`MINK_B`), raw, with the
+   epilogue and as d_x, against its plain version on the batch-8 graph,
+   timed beside its bound and the unfused path (D + cuDNN, `unfused_ms`);
+   then the whole model at its published widths on one 512^3 batch: eval
+   logits and one train step (stage_dots) on the kernels against the
+   plain versions (phase 2's and phase 4's bounds), the kernel launches of
+   a step (100 of kernel B, `MINK_STEP_WIDE` of them wide), and three
+   timed steps at batch 8 with their peak memory.
 
 Every check raises, so any failure exits nonzero. The last line is a JSON
 object naming the device; the line before it lists each kernel's route,
@@ -245,6 +249,30 @@ WIDTH_DX = (("f12 L0 t=4 12->12", 0, 4, 12, 12),
             ("geo L4 t=2 256->256", 4, 2, 256, 256))
 WIDTH_T8 = (("t8 dec L2 t=8 96->48", 2, 8, 96, 48),
             ("t8 dec L3 t=8 128->64", 3, 8, 128, 64))
+
+# MinkUNet34C's convs on kernel B's wide path (`kernel_plan`'s ring > 0),
+# held and timed in phase 17 on its 512^3 batch-8 graph: (name, level, t,
+# Cin, Cout) of every such forward conv, and each one's d_x (Cout -> Cin
+# on flipped weights). The decoder's first conv runs as two convs, against
+# the up half and the skip half; the up convs at levels 0-1 (96 -> 96) and
+# the skip convs 32 -> 96 stay on the resident path, as do levels 1-2's
+# 32 -> 32 and 32 -> 64 and their d_x.
+MINK_B = (("mink L0 dec t=4 96->96", 0, 4, 96, 96),
+          ("mink L1 dec t=2 96->96", 1, 2, 96, 96),
+          ("mink L2 t=2 64->64", 2, 2, 64, 64),
+          ("mink L2 dec t=2 64->128", 2, 2, 64, 128),
+          ("mink L2 dec t=2 128->128", 2, 2, 128, 128),
+          ("mink L3 t=2 64->128", 3, 2, 64, 128),
+          ("mink L3 t=2 128->128", 3, 2, 128, 128),
+          ("mink L3 dec t=2 128->256", 3, 2, 128, 256),
+          ("mink L3 dec t=2 256->256", 3, 2, 256, 256),
+          ("mink L4 t=2 128->256", 4, 2, 128, 256),
+          ("mink L4 t=2 256->256", 4, 2, 256, 256))
+# of a stage_dots step's 100 kernel-B launches (50 forward convs, 50 d_x),
+# those on the wide path: the forward convs of MINK_B's shapes (5 at L2
+# 64->64, 4 + 1 at dec L2, 1 + 7 at L3, 4 + 1 at dec L3, 1 + 11 at L4, 4
+# at dec L1, 4 at dec L0) and their d_x
+MINK_STEP_WIDE = 2 * 43
 
 
 def require(cond: bool, msg: str) -> None:
@@ -435,23 +463,32 @@ def unfused_ms(halo, t, x, w, g=None, wrt=None) -> float:
                                                retain_graph=True))
 
 
+def require_plan(name, T, t, cin, cout) -> tuple:
+    """Kernel B's launch plan of a conv cin -> cout (the kernel's
+    `halo_conv_plan`, kg << 24 | ring << 20 | cs << 10 | cw) held to
+    `ops/cuda/halo_conv.py:kernel_plan`'s; returns (cs, cw, ring, kg)."""
+    from uresnet_pytorch_tpu_torch.ops import cuda
+    from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import kernel_plan
+    plan = cuda.library().halo_conv_plan(T, t, 3, cin, cout)
+    got = (plan >> 10 & 1023, plan & 1023, plan >> 20 & 15, plan >> 24)
+    require(got == kernel_plan(t, 3, cin, cout),
+            f"halo_conv {name}: the kernel plans (Cout slice, chunk, ring, "
+            f"offsets a stage) {got}, ops/cuda/halo_conv.py:kernel_plan "
+            f"{kernel_plan(t, 3, cin, cout)}")
+    return got
+
+
 def check_halo_conv(name, level, t, cin, cout, rng, device,
                     unfused: bool = False):
     """Kernel B vs its plain version on one level's real halo maps, raw and
     with the epilogue. Returns (max_abs_err, kernel ms, plain ms, bound
     ms, bound by) of the epilogue form, and with `unfused` the same conv's
     `unfused_ms`."""
-    from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
-        halo_conv, halo_conv_plain, kernel_plan)
+        halo_conv, halo_conv_plain)
     B, T = level.keys.shape
     cells = t ** 3
-    plan = cuda.library().halo_conv_plan(T, t, 3, cin, cout)
-    cs, cw = divmod(plan, 1024)
-    require((cs, cw) == kernel_plan(t, 3, cin, cout),
-            f"halo_conv {name}: the kernel plans (Cout slice, chunk) "
-            f"{(cs, cw)}, ops/cuda/halo_conv.py:kernel_plan "
-            f"{kernel_plan(t, 3, cin, cout)}")
+    cs, cw, ring, kg = require_plan(name, T, t, cin, cout)
     live = level.halo.blive[..., None, None].cpu().numpy()
     x = rng.standard_normal((B, T, cells, cin), dtype=np.float32) * live
     w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
@@ -486,9 +523,10 @@ def check_halo_conv(name, level, t, cin, cout, rng, device,
               + 8 * cout + mask.numel() + B * T * cells * cout * 2)
     bound_ms, by = bound(2 * 27 * cin * cout * n_live * cells, nbytes)
     slices = -(-cout // cs)
+    path = f"wide, a ring of {ring} x {kg} offsets" if ring else "resident"
     print(f"halo_conv {name}: kernel bn_act {ms:.3f} ms, raw {raw_ms:.3f} "
           f"ms, plain bn_act {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-          f"({by}); {slices} Cout slice(s) of {cs}, chunks of {cw} "
+          f"({by}); {path}: {slices} Cout slice(s) of {cs}, chunks of {cw} "
           f"channels")
     if not unfused:
         return worst, ms, plain_ms, bound_ms, by
@@ -636,6 +674,7 @@ def check_dx(name, level, t, cin, cout, rng, device, unfused: bool = False):
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
         flip_weights, halo_conv, halo_conv_plain)
     B, T = level.keys.shape
+    ring, kg = require_plan(f"d_x {name}", T, t, cout, cin)[2:]
     live = level.halo.blive[..., None, None].cpu().numpy()
     g = rng.standard_normal((B, T, t ** 3, cout), dtype=np.float32) * live
     w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
@@ -660,7 +699,9 @@ def check_dx(name, level, t, cin, cout, rng, device, unfused: bool = False):
               + halo_bytes(level.halo) + B * T * t ** 3 * cin * 2)
     bound_ms, by = bound(2 * 27 * cin * cout * n_live * t ** 3, nbytes)
     print(f"halo_conv d_x {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-          f"ms, bound {bound_ms:.4f} ms ({by})")
+          f"ms, bound {bound_ms:.4f} ms ({by}); "
+          + (f"wide, a ring of {ring} x {kg} offsets" if ring
+             else "resident"))
     if not unfused:
         return float(err.max()), ms, plain_ms, bound_ms, by
     x = torch.zeros(B, T, t ** 3, cin, dtype=torch.bfloat16, device=device)
@@ -805,7 +846,7 @@ def record_extend(shapes: dict, path: str):
     wrapped = {"D": he.halo26_fwd, "E": he.halo26_bwd}
 
     def wrap(kernel):
-        def run(a, spec, t, dim):
+        def run(a, spec, t, dim, h=1):
             B, T, _, C = a.shape
             key = (f"{path} {kernel} B={B} T={T} t={t} C={C} "
                    f"{str(a.dtype)[6:]}")
@@ -814,7 +855,7 @@ def record_extend(shapes: dict, path: str):
                 "dtype": a.dtype, "t": t, "dim": dim, "launches": 0,
                 "spec": (spec.idx, spec.ok)})
             rec["launches"] += 1
-            return wrapped[kernel](a, spec, t, dim)
+            return wrapped[kernel](a, spec, t, dim, h)
         return run
     with mock.patch.multiple(he, halo26_fwd=wrap("D"), halo26_bwd=wrap("E")):
         yield
@@ -2832,6 +2873,7 @@ def mink_phase(device, counts) -> dict:
     against the plain versions at its published widths (see the module's
     docstring). Returns the readings by name."""
     from uresnet_pytorch_tpu_torch.models import construct
+    from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc_mod
     from uresnet_pytorch_tpu_torch.ops.tile_graph import build_tile_graph
     from uresnet_pytorch_tpu_torch.trainval import TrainVal
     from uresnet_pytorch_tpu_torch.utils.weights import init_params
@@ -2875,7 +2917,22 @@ def mink_phase(device, counts) -> dict:
             timed=False, h=2)
     del graph, masks
     torch.cuda.empty_cache()
-    # (c) the whole model on one 512^3 batch against the plain versions
+    # (c) kernel B's wide path at every shape of the model that takes it,
+    # forward (raw and with the epilogue) and d_x, beside D + cuDNN
+    with torch.no_grad():
+        graph = build_tile_graph(*args8, cfg8)
+    rng = np.random.default_rng(SEED + 17)
+    for name, level, t, cin, cout in MINK_B:
+        lev = graph.levels[level]
+        out[f"halo_conv {name}"] = check_halo_conv(name, lev, t, cin, cout,
+                                                   rng, device, unfused=True)
+        torch.cuda.empty_cache()
+        out[f"halo_conv d_x {name}"] = check_dx(name, lev, t, cin, cout, rng,
+                                                device, unfused=True)
+        torch.cuda.empty_cache()
+    del graph
+    torch.cuda.empty_cache()
+    # (d) the whole model on one 512^3 batch against the plain versions
     cfg = config_mink(BATCH4)
     blob = event_blob(cfg, BATCH4)
     args = [torch.from_numpy(blob[k]).to(device)
@@ -2902,7 +2959,7 @@ def mink_phase(device, counts) -> dict:
     tv.train_step(blob8)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    before = counts()
+    before, wide = counts(), hc_mod.launches_wide
     losses, ms = [], []
     for _ in range(3):
         met, t_ms = timed_call(lambda: tv.train_step(blob8))
@@ -2910,6 +2967,11 @@ def mink_phase(device, counts) -> dict:
         ms.append(t_ms)
     after = counts()
     per_step = {k: (after[k] - before[k]) / 3 for k in after}
+    per_step["halo_conv_wide"] = (hc_mod.launches_wide - wide) / 3
+    require(per_step["halo_conv"] == 100
+            and per_step["halo_conv_wide"] == MINK_STEP_WIDE,
+            f"minkunet34c: expected 100 kernel-B launches a step, "
+            f"{MINK_STEP_WIDE} of them wide, got {per_step}")
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
     require(all(np.isfinite(losses)), f"minkunet34c losses {losses}")
     print(f"minkunet34c batch {BATCH} stage_dots: step ms {ms}, losses "

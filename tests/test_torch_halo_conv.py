@@ -241,46 +241,140 @@ def _im2col(x, spec, t, kp):
 
 
 @pytest.mark.parametrize("t,Cin,Cout,plan", [
-    pytest.param(4, 1, 128, (128, 1), id="stem-128"),
-    pytest.param(4, 12, 40, (40, 12), id="packed-12"),
-    pytest.param(4, 16, 128, (128, 16), id="t4-16-128"),
-    pytest.param(2, 24, 32, (32, 32), id="t2-24-32"),
-    pytest.param(2, 128, 64, (16, 32), id="dec-L3-slices-chunks"),
-    pytest.param(4, 12, 12, (16, 12), id="cout12-pad16"),
-    pytest.param(2, 36, 36, (40, 48), id="cout36-pad40-cin-pad48"),
-    pytest.param(2, 60, 60, (32, 64), id="cout60-two-slices"),
-    pytest.param(2, 72, 36, (40, 16), id="cout36-chunks"),
-    pytest.param(2, 160, 160, (16, 32), id="cin160-ten-slices"),
-    pytest.param(2, 256, 256, (8, 32), id="cin256-32-slices"),
-    pytest.param(8, 16, 16, (16, 16), id="t8-slabs"),
-    pytest.param(8, 96, 48, (24, 96), id="t8-slabs-96-48"),
-    pytest.param(8, 128, 64, (16, 128), id="t8-slabs-128-64"),
+    pytest.param(4, 1, 128, (128, 1, 0, 0), id="stem-128"),
+    pytest.param(4, 12, 40, (40, 12, 0, 0), id="packed-12"),
+    pytest.param(4, 16, 128, (128, 16, 0, 0), id="t4-16-128"),
+    pytest.param(2, 24, 32, (32, 32, 0, 0), id="t2-24-32"),
+    pytest.param(2, 128, 64, (64, 32, 4, 3), id="dec-L3-slices-chunks"),
+    pytest.param(4, 12, 12, (16, 12, 0, 0), id="cout12-pad16"),
+    pytest.param(2, 36, 36, (40, 48, 0, 0), id="cout36-pad40-cin-pad48"),
+    pytest.param(2, 60, 60, (32, 64, 0, 0), id="cout60-two-slices"),
+    pytest.param(2, 72, 36, (40, 16, 0, 0), id="cout36-chunks"),
+    pytest.param(2, 160, 160, (160, 32, 5, 1), id="cin160-ten-slices"),
+    pytest.param(2, 256, 256, (256, 16, 5, 3), id="cin256-32-slices"),
+    pytest.param(8, 16, 16, (16, 16, 0, 0), id="t8-slabs"),
+    pytest.param(8, 96, 48, (64, 48, 4, 3), id="t8-slabs-96-48"),
+    pytest.param(8, 128, 64, (64, 64, 6, 1), id="t8-slabs-128-64"),
+    pytest.param(2, 384, 256, (256, 16, 5, 3), id="wide-cin384"),
+    pytest.param(4, 128, 96, (96, 64, 8, 1), id="wide-t4-128-96"),
 ])
 def test_kernel_weights_rebuild_the_conv(t, Cin, Cout, plan):
-    """The kernel's GEMM, rebuilt in torch from `kernel_weights`: the plain
-    extend's im2col in the kernel's depth order times the (round_up(Cout,
-    8), kp) weights, one block's slice of output channels at a time and,
-    within it, one staged chunk of channels after another (`kernel_plan`),
-    the pad's columns dropped, equals `halo_conv_plain` in f32. Holds the
-    packing's and the groups' index arithmetic where no card can run the
-    kernel."""
+    """The kernel's GEMM, rebuilt in torch from its weight operand: the
+    plain extend's im2col in the kernel's depth order times the weights,
+    the pad's columns dropped, equals `halo_conv_plain` in f32. On the
+    resident path the operand is `kernel_weights`' (round_up(Cout, 8), kp),
+    taken one block's slice of output channels at a time and, within it,
+    one staged chunk of channels after another; on the wide path (a ring,
+    `kernel_plan`'s third field) it is `wide_weights`' tiles, one per
+    (Cout slice, chunk, offset). Holds the packing's, the tiles' and the
+    groups' index arithmetic where no card can run the kernel."""
     keys, x, w, *_ = _case(t, Cin, Cout, 40 if t < 8 else 6, seed=Cin)
     _, spec = _specs(keys)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
-    kw = hc.kernel_weights(wt)
-    coutp = -(-Cout // 8) * 8
-    assert kw.shape[0] == coutp and not kw[Cout:].any()
     assert hc.kernel_plan(t, 3, Cin, Cout) == plan
-    cs, cw = plan
-    a = _im2col(xt, spec, t, kw.shape[1])
+    cs, cw, ring, _ = plan
     cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
-    chunk = torch.arange(kw.shape[1]) % cpad // cw   # depth kk's chunk
-    assert int(chunk.max()) + 1 == cpad // cw
-    y = torch.cat([sum(a[..., chunk == c] @ kw[n:n + cs, chunk == c].t()
-                       for c in range(cpad // cw))
-                   for n in range(0, coutp, cs)], -1)[..., :Cout]
-    y = y * spec.blive[:, :, None, None]
     ref = hc.halo_conv_plain(xt, wt, spec, t, 3).numpy()
-    # f32 sums of up to 27 x 128 terms in two orders: 1e-5 of the scale
+    if ring:
+        tiles = hc.wide_weights(wt, cs, cw)
+        slices, nch = -(-Cout // cs), cpad // cw
+        assert tiles.shape == (slices, nch, 27, cw // 8, cs, 8)
+        # tile (s, c, k)[u, j, e] is w[k, c * cw + 8 u + e, s * cs + j]
+        a = _im2col(xt, spec, t, 27 * cpad)
+        a = a.reshape(*a.shape[:-1], 27, nch, cw // 8, 8)
+        y = torch.einsum("btmkcue,sckuje->btmsj", a, tiles).flatten(-2)
+        assert not y[..., Cout:].any()
+        y = y[..., :Cout]
+    else:
+        kw = hc.kernel_weights(wt)
+        coutp = -(-Cout // 8) * 8
+        assert kw.shape[0] == coutp and not kw[Cout:].any()
+        a = _im2col(xt, spec, t, kw.shape[1])
+        chunk = torch.arange(kw.shape[1]) % cpad // cw   # depth kk's chunk
+        assert int(chunk.max()) + 1 == cpad // cw
+        y = torch.cat([sum(a[..., chunk == c] @ kw[n:n + cs, chunk == c].t()
+                           for c in range(cpad // cw))
+                       for n in range(0, coutp, cs)], -1)[..., :Cout]
+    y = y * spec.blive[:, :, None, None]
+    # f32 sums of up to 27 x 384 terms in two orders: 1e-5 of the scale
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-5,
                                atol=1e-5 * np.abs(ref).max())
+
+
+# every 3^3 conv of MinkUNet34C (levels 1-4 at t=2, the decoder's level 0
+# at t=4; a decoder's first conv as its up and skip halves) and of the
+# sparse U-ResNet at uresnet_filters=16 (the stem and level 0 at t=4;
+# eval's concat convs), with kernel B's path for the conv and for its d_x
+# (Cout -> Cin on the flipped stencil): wide where the resident plan
+# splits Cout and Cin stages by vectors
+MODEL_CONVS = [
+    pytest.param(2, 32, 32, "resident", "resident", id="mink-L1-32-32"),
+    pytest.param(2, 32, 64, "resident", "resident", id="mink-L2-32-64"),
+    pytest.param(2, 64, 64, "wide", "wide", id="mink-L2-64-64"),
+    pytest.param(2, 64, 128, "wide", "wide", id="mink-L3-64-128"),
+    pytest.param(2, 128, 128, "wide", "wide", id="mink-L3-128-128"),
+    pytest.param(2, 128, 256, "wide", "wide", id="mink-L4-128-256"),
+    pytest.param(2, 256, 256, "wide", "wide", id="mink-L4-256-256"),
+    pytest.param(2, 96, 96, "wide", "wide", id="mink-dec-L1-96-96"),
+    pytest.param(2, 32, 96, "resident", "resident", id="mink-dec-L1-32-96"),
+    pytest.param(4, 96, 96, "wide", "wide", id="mink-dec-L0-96-96"),
+    pytest.param(4, 32, 96, "resident", "resident", id="mink-dec-L0-32-96"),
+    pytest.param(4, 1, 16, "resident", "resident", id="sparse-stem"),
+    pytest.param(4, 16, 16, "resident", "resident", id="sparse-L0-16-16"),
+    pytest.param(4, 32, 16, "resident", "resident", id="sparse-dec-L0-32-16"),
+    pytest.param(2, 32, 32, "resident", "resident", id="sparse-L1-32-32"),
+    pytest.param(2, 64, 32, "resident", "resident", id="sparse-dec-L1-64-32"),
+    pytest.param(2, 48, 48, "resident", "resident", id="sparse-L2-48-48"),
+    pytest.param(2, 96, 48, "wide", "wide", id="sparse-dec-L2-96-48"),
+    pytest.param(2, 64, 64, "wide", "wide", id="sparse-L3-64-64"),
+    pytest.param(2, 128, 64, "wide", "wide", id="sparse-dec-L3-128-64"),
+    pytest.param(2, 80, 80, "wide", "wide", id="sparse-L4-80-80"),
+]
+
+
+@pytest.mark.parametrize("direction", ["forward", "d_x"])
+@pytest.mark.parametrize("t,Cin,Cout,fwd_path,dx_path", MODEL_CONVS)
+def test_model_convs_take_their_path(t, Cin, Cout, fwd_path, dx_path,
+                                     direction):
+    """`kernel_plan` at each conv of both models: a plan (none is left to
+    another path), the path the shape rule gives (the table's: wide exactly
+    where the resident plan splits Cout into slices and Cin >= 16, Cin % 8
+    == 0), and a wide plan's shared memory within the 232,448 bytes a block may
+    use: its ring of weight stages, two buffers of two groups' extended
+    rows, and the static tables (under 8 KB)."""
+    cin, cout, path = (Cin, Cout, fwd_path) if direction == "forward" \
+        else (Cout, Cin, dx_path)
+    plan = hc.kernel_plan(t, 3, cin, cout)
+    assert plan is not None
+    assert ("wide" if plan.ring else "resident") == path
+    if not plan.ring:
+        return
+    grp = hc.groups(t, 3)
+    ext = -(-2 * grp.tiles * grp.gcells * (plan.cw + 8) * 2 // 16) * 16
+    stage = plan.kg * plan.cs * plan.cw * 2
+    assert 27 % plan.kg == 0 and (-(-cin // 16) * 16) % plan.cw == 0
+    assert plan.cs % 32 == 0 and plan.cs >= cout and 4 <= plan.ring <= 8
+    assert plan.ring * stage + 2 * ext + 8192 <= 232448
+
+
+@pytest.mark.parametrize("Cin,Cout,offset,copied", [
+    pytest.param(256, 256, 0, False, id="wide-aligned"),
+    pytest.param(256, 256, 1, True, id="wide-offset"),
+    pytest.param(32, 32, 1, False, id="resident-offset"),
+])
+def test_staged_input_aligns_the_wide_path(Cin, Cout, offset, copied):
+    """The wrapper and the kernel choose the wide path from the shape alone
+    (`make_plan` refuses it an x off 16 bytes rather than reading its
+    operand as the resident layout), so `staged_input` hands the wide path
+    a 16-byte-aligned copy of an x viewed at an odd element offset, equal
+    to x, and the resident path x itself, which it stages by scalars."""
+    n = 2 * 3 * 8 * Cin
+    base = torch.arange(n + offset, dtype=torch.float32).to(torch.bfloat16)
+    x = base[offset:].view(2, 3, 8, Cin)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    plan = hc.kernel_plan(2, 3, Cin, Cout)
+    assert bool(plan.ring) == (Cin == 256)
+    got = hc.staged_input(x, plan)
+    assert (got is not x) == copied
+    assert got.data_ptr() % 16 == 0 or not plan.ring
+    assert torch.equal(got, x) and got.is_contiguous()

@@ -15,8 +15,9 @@ process of its own, which imports that tree's package (and this tree's
 tree that does not build is reported, left out, and makes the run exit 1)
 and times its `halo_conv` wrapper with CUDA events: the mean of 20
 launches after 3 warm-ups, on random bf16 inputs made from one seed, on
-the real halo maps of config 3 (batch 8) and config 4 (batch 2, d_x on
-flipped weights). `--dw` times its `halo_conv_dw` wrapper instead, at the
+the real halo maps of config 3 (batch 8), config 4 (batch 2, d_x on
+flipped weights) and MinkUNet34C's 512^3 batch of 8 (its convs, forward
+and d_x). `--dw` times its `halo_conv_dw` wrapper instead, at the
 six weight-gradient shapes of a config-4 step. The trees run in the order
 given and then in reverse, `rounds` times, so a drift of the card falls on
 every tree alike. `--check NAME` holds that tree's kernel to its plain
@@ -50,7 +51,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 
-# name, config (3 or 4), level, t, Cin, Cout, d_x (raw on flipped weights)
+# name, config (3, 4 or "mink"), level, t, Cin, Cout, d_x (raw on flipped
+# weights)
 SHAPES = [("L0 t=4 16->16", 3, 0, 4, 16, 16, False),
           ("stem L0 t=4 1->16", 3, 0, 4, 1, 16, False),
           ("dec L0 t=4 32->16", 3, 0, 4, 32, 16, False),
@@ -60,6 +62,24 @@ SHAPES = [("L0 t=4 16->16", 3, 0, 4, 16, 16, False),
           ("L4 t=2 80->80", 3, 4, 2, 80, 80, False),
           ("d_x L0 t=4 16->16", 4, 0, 4, 16, 16, True),
           ("d_x L4 t=2 80->80", 4, 4, 2, 80, 80, True)]
+# MinkUNet34C's convs that keep the resident path (one Cout slice), beside
+# those on the wide path (chip_smoke.MINK_B): name, level, t, Cin, Cout
+MINK_RESIDENT = (("mink L1 t=2 32->32", 1, 2, 32, 32),
+                 ("mink L2 t=2 32->64", 2, 2, 32, 64),
+                 ("mink L1 dec t=2 32->96", 1, 2, 32, 96),
+                 ("mink L0 dec t=4 32->96", 0, 4, 32, 96))
+
+
+def shapes() -> list:
+    """SHAPES, then MinkUNet34C's (MINK_RESIDENT, then chip_smoke.MINK_B)
+    on its 512^3 batch-8 graph ("mink"), forward and d_x."""
+    return SHAPES + [(pre + name, "mink", lvl, t,
+                      *((co, ci) if dx else (ci, co)), dx)
+                     for dx, pre in ((False, ""), (True, "d_x "))
+                     for name, lvl, t, ci, co in MINK_RESIDENT
+                     + _smoke().MINK_B]
+
+
 # kernel C on config 4's maps: name, level, t, Cin, Cout (the decoder's
 # first conv_a runs as a pair of convs against the halves of its stack)
 DW_SHAPES = [("stem L0 t=4 1->16", 0, 4, 1, 16),
@@ -546,12 +566,19 @@ def worker(check: bool) -> dict:
     with torch.no_grad():
         coords, values, nv = chip_smoke.events(chip_smoke.config3(), device)
         graphs[3] = build_tile_graph(coords, values, nv, chip_smoke.config3())
+        cfg = chip_smoke.config_mink(chip_smoke.BATCH)
+        blob = chip_smoke.event_blob(cfg, chip_smoke.BATCH)
+        graphs["mink"] = build_tile_graph(
+            *(torch.from_numpy(blob[k]).to(device)
+              for k in ("coords", "values", "n_voxels")), cfg)
     out = {"package": hc.__file__, "shapes": {}, "errors": {}}
-    for i, (name, cfg, lvl, t, cin, cout, dx) in enumerate(SHAPES):
+    for i, (name, cfg, lvl, t, cin, cout, dx) in enumerate(shapes()):
         level = graphs[cfg].levels[lvl]
         x, w, ep = _inputs(level, t, cin, cout, seed=i)
         if dx:
-            w, ep = hc.flip_weights(w).contiguous(), None
+            # the d_x kernel (Cin, Cout) on the flipped stencil of a conv
+            # Cout -> Cin: flip_weights of w's transpose
+            w, ep = w.flip(0).contiguous(), None
         forms = {"raw": {}} if dx else {"bn_act": ep, "raw": {}}
         res = {}
         for form, kw in forms.items():
@@ -685,7 +712,7 @@ def main(argv=None) -> int:
         f"{2 * args.rounds} runs, x{first} = ratio to {first})")
     table = {}
     forms = ("dw",) if args.dw else ("bn_act", "raw")
-    for name, *_ in DW_SHAPES if args.dw else SHAPES:
+    for name, *_ in DW_SHAPES if args.dw else shapes():
         for form in forms:
             cells = {}
             for n in order:

@@ -23,7 +23,7 @@
 // v = 0 1 for a leaky slope (the gradient of where(v >= 0, v, s v)) and 0
 // for slope 0 (that of relu). Every block derives (sh, a, b) itself, in f32,
 // from the sums (train) or the running moments (eval): mean = s1 / max(n, 1),
-// var = max(s2 / max(n, 1) - mean^2, 0), inv = 1 / sqrt(var + eps), then
+// var = max(s2 / max(n, 1) - mean^2, 0), inv = rsqrt(var + eps), then
 // `folded` (the masked BN): sh = 0, a = scale inv and b = bias - mean scale
 // inv, each rounded to x's type; else (flax's f32 BatchNorm): sh = mean,
 // a = inv scale, b = bias. c1 and c2 are the gradients that reach x through
@@ -138,7 +138,10 @@ struct Coef {
 
 template <typename T>
 __device__ Coef coef(const Params& p, int c, const Moments& mo) {
-  const float inv = __fdiv_rn(1.f, __fsqrt_rn(__fadd_rn(mo.var, p.eps)));
+  // rsqrtf, the op torch's rsqrt runs on the card, so (a, b) equal the
+  // plain version's: 1 / sqrt differs from it in the last bit at some
+  // variances, and a and b, rounded to x's type, can then land a step apart
+  const float inv = rsqrtf(__fadd_rn(mo.var, p.eps));
   const float s = p.scale[c];
   if (p.folded) {
     const float a = __fmul_rn(s, inv);

@@ -43,6 +43,7 @@ from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import halo_conv_dw
 from uresnet_pytorch_tpu_torch.ops.halo import Halo26Spec, halo26_extend
 
 launches = 0   # kernel launches, for showing a run went through the kernel
+launches_wide = 0   # of those, on the wide path (`kernel_plan`'s ring > 0)
 
 
 def halo_conv_plain(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec,
@@ -115,6 +116,31 @@ def kernel_weights(w: torch.Tensor) -> torch.Tensor:
     return wt
 
 
+def wide_weights(w: torch.Tensor, n: int, cw: int) -> torch.Tensor:
+    """(K, Cin, Cout) -> the wide path's weight tiles, (slices, chunks, K,
+    cw / 8, n, 8) zero-padded: for Cout slice s (n channels, past Cout
+    zero), channel chunk c (cw of the padded Cin) and offset k, one
+    contiguous tile that holds w[k, c * cw + 8 u + e, s * n + j] at
+    [u, j, e]: one bulk copy brings it, and its 8 x 8 blocks of 128 bytes
+    are wgmma's K-major core matrices. The depth is `kernel_weights'`
+    (offset-major, Cin padded to 16), cut into chunks."""
+    K, Cin, Cout = w.shape
+    cpad = -(-Cin // 16) * 16
+    slices = -(-Cout // n)
+    wt = w.new_zeros(K, cpad, slices * n)
+    wt[:, :Cin, :Cout] = w
+    return wt.reshape(K, cpad // cw, cw // 8, 8, slices, n).permute(
+        4, 1, 0, 2, 5, 3).contiguous()
+
+
+def staged_input(x: torch.Tensor, plan: "KernelPlan") -> torch.Tensor:
+    """x as the kernel may read it: the wide path stages rows by 16-byte
+    copies and refuses an x off a 16-byte boundary (a view at an odd
+    offset), so such an x is copied to a fresh tensor first; the resident
+    path stages it by scalar loads as it is."""
+    return x.clone() if plan.ring and x.data_ptr() % 16 else x
+
+
 class Groups(NamedTuple):
     """How the kernel cuts a level into groups of 64 output rows
     (`make_plan` in csrc/halo_conv.cu): `tiles` whole tiles (t^dim <= 64),
@@ -142,20 +168,45 @@ def groups(t: int, dim: int) -> Optional[Groups]:
     return Groups(1, t // rows, (rows + 2) * plane, rows * plane)
 
 
+class KernelPlan(NamedTuple):
+    """Kernel B's plan of one conv: `cs` output channels per block, `cw`
+    channels per staged chunk, and the wide path's `ring` weight stages
+    and `kg` offsets per stage (both 0 on the resident path, whose blocks
+    hold their slice's weights)."""
+    cs: int
+    cw: int
+    ring: int
+    kg: int
+
+
+SMEM = 232448 - 8192     # dynamic shared memory a block may use: the static
+#                          tables take at most 8 KB of the 227 KB
+
+
 @functools.lru_cache(maxsize=None)
-def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[tuple]:
-    """(output channels per block, channels per staged chunk) of the
-    kernel's plan, mirrored from `make_plan` in csrc/halo_conv.cu, or None
-    where the kernel takes no such conv: the one statement of its limits,
-    asked by the wrapper's check and by `ops/tile_conv.py`'s choice of
-    path. Output rows come in groups of 64 (`groups`). Cout is padded to a
-    multiple of 8 (`kernel_weights`' zero rows) and split into slices of
-    at most 128. Each block holds its slice's weight rows in shared memory
-    (227 KB a block, less 8 KB of static tables) beside either one buffer
+def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[KernelPlan]:
+    """The kernel's plan, mirrored from `make_plan` and `plan_wide` in
+    csrc/halo_conv.cu, or None where the kernel takes no such conv: the
+    one statement of its limits, asked by the wrapper's check and by
+    `ops/tile_conv.py`'s choice of path. Output rows come in groups of 64
+    (`groups`).
+
+    The resident path: Cout is padded to a multiple of 8 (`kernel_weights`'
+    zero rows) and split into slices of at most 128. Each block holds its
+    slice's weight rows in shared memory (`SMEM`) beside either one buffer
     of a group's extended rows (padded Cin at most 128), or two buffers of
     channel chunks (a multiple of 16 up to 128 dividing the padded Cin),
     pipelined: the latter where it takes fewer slices or Cin is wider, at
-    Cin >= 16. Both take the fewest slices, then the widest chunk."""
+    Cin >= 16. Both take the fewest slices, then the widest chunk.
+
+    The wide path, where that plan splits Cout and the input stages by
+    16-byte vectors (Cin >= 16, Cin % 8 == 0): a block computes two groups
+    (128 rows) by N = Cout rounded up to 32 (at most 256; wider Cout in
+    slices of 128) and streams the weights through a ring of (offset,
+    chunk) tiles (`wide_weights`) beside two buffers of both groups'
+    extended rows: the widest chunk that leaves room for 4 tiles, stages
+    of the most offsets (9, 3 or 1, dividing 3^dim) of which 4 fit, and as
+    many stages as fit, up to 8. Where nothing fits, the resident plan."""
     grp = groups(t, dim)
     K = 3 ** dim
     if Cin < 1 or Cout < 1 or grp is None or grp.tiles * K > 216:
@@ -166,13 +217,15 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[tuple]:
     kp = -(-K * Cin // 16) * 16 if packed else K * cpad
     n = -(-Cout // 8)
 
+    def ext_bytes(cw, n_groups=1):
+        sa = cw if packed else cw + 8
+        return -(-n_groups * tiles * gcells * sa * 2 // 16) * 16
+
     def fit(bufs, widths):
         for d in range(min(n, 16), 0, -1):
             for cw in widths:
-                sa = cw if packed else cw + 8
-                ext = -(-tiles * gcells * sa * 2 // 16) * 16
-                if n % d == 0 and d * 8 * (kp + 8) * 2 + bufs * ext \
-                        <= 232448 - 8192:
+                if n % d == 0 and d * 8 * (kp + 8) * 2 + bufs * ext_bytes(cw) \
+                        <= SMEM:
                     return d, cw
         return 0, 0
 
@@ -180,7 +233,19 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[tuple]:
     two = (0, 0) if packed else fit(
         2, [c for c in range(min(cpad, 128), 0, -16) if cpad % c == 0])
     d, cw = two if two[0] > one[0] else one
-    return (8 * d, cw) if d else None
+    if not d:
+        return None
+    if packed or Cin % 8 or d == n:
+        return KernelPlan(8 * d, cw, 0, 0)
+    wide_n = -(-Cout // 32) * 32 if Cout <= 256 else 128
+    for wcw in range(min(cpad, 128), 0, -16):
+        tile = wide_n * wcw * 2
+        room = SMEM - 2 * ext_bytes(wcw, 2)
+        if cpad % wcw == 0 and room >= 4 * tile:
+            kg = next(g for g in (9, 3, 1)
+                      if g == 1 or (K % g == 0 and room >= 4 * g * tile))
+            return KernelPlan(wide_n, wcw, min(8, room // (kg * tile)), kg)
+    return KernelPlan(8 * d, cw, 0, 0)
 
 
 def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out) -> tuple:
@@ -205,7 +270,7 @@ def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
         raise ValueError("halo_conv: pass a, b and mask together")
     if x.device.type == "cpu":
         return halo_conv_plain(x, w, halo, t, dim, a, b, alpha, mask)
-    global launches
+    global launches, launches_wide
     _check(x, w, halo, t, dim, a, b, mask)
     B, T, cells, _ = x.shape
     out = torch.empty(B, T, cells, w.shape[-1], dtype=x.dtype,
@@ -214,12 +279,16 @@ def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
         return out
     lib = cuda.library()
     fn = lib.halo_conv_raw if a is None else lib.halo_conv_bn_act
+    plan = kernel_plan(t, dim, x.shape[-1], w.shape[-1])
+    x = staged_input(x, plan)
     with torch.cuda.device(x.device):
-        wt = kernel_weights(w)
+        wt = wide_weights(w, plan.cs, plan.cw) if plan.ring \
+            else kernel_weights(w)
         err = fn(*launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out),
                  torch.cuda.current_stream().cuda_stream)
     cuda.check(err, "halo_conv")
     launches += 1
+    launches_wide += plan.ring > 0
     return out
 
 
