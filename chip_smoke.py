@@ -9,7 +9,7 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
 1. holds kernels A and B against their plain torch versions at the shapes
    config-3 inference gives them (B at every conv shape of the forward:
    the stem, L0 and the decoder's L0 concat at t=4, L1-L4 and the decoder's
-   L3 concat at t=2; its launch plan against `kernel_plan`'s; A's two link
+   L3 concat at t=2, each on the plan `kernel_plan` gives it; A's two link
    directions at links 1-3 at widths 1, 48, 64 and 80, and in float32, at
    a t_c=4 link of a global t=4 graph and at links of 2D graphs, and its
    single-spec gather), and times them with CUDA events (A on the
@@ -23,7 +23,7 @@ Builds the port's CUDA kernels from `uresnet_pytorch_tpu_torch/csrc/`
    the logits with the same model on the plain versions;
 3. holds the backward's kernels against their plain versions on config
    4's real halo maps (batch 2): kernel C (d_W) at every conv shape of the
-   step (its launch plan against `dw_plan`'s), timed, and kernel B as d_x
+   step (on `dw_plan`'s plan), timed, and kernel B as d_x
    on flipped weights; then kernels C and B at the branches that other
    widths and tile sizes reach (L3 128->128 with two Cout slices, C's
    packed path at Cin 8, and tile_size=8's one-tile chunks on a t=8 graph
@@ -463,21 +463,6 @@ def unfused_ms(halo, t, x, w, g=None, wrt=None) -> float:
                                                retain_graph=True))
 
 
-def require_plan(name, T, t, cin, cout) -> tuple:
-    """Kernel B's launch plan of a conv cin -> cout (the kernel's
-    `halo_conv_plan`, kg << 24 | ring << 20 | cs << 10 | cw) held to
-    `ops/cuda/halo_conv.py:kernel_plan`'s; returns (cs, cw, ring, kg)."""
-    from uresnet_pytorch_tpu_torch.ops import cuda
-    from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import kernel_plan
-    plan = cuda.library().halo_conv_plan(T, t, 3, cin, cout)
-    got = (plan >> 10 & 1023, plan & 1023, plan >> 20 & 15, plan >> 24)
-    require(got == kernel_plan(t, 3, cin, cout),
-            f"halo_conv {name}: the kernel plans (Cout slice, chunk, ring, "
-            f"offsets a stage) {got}, ops/cuda/halo_conv.py:kernel_plan "
-            f"{kernel_plan(t, 3, cin, cout)}")
-    return got
-
-
 def check_halo_conv(name, level, t, cin, cout, rng, device,
                     unfused: bool = False):
     """Kernel B vs its plain version on one level's real halo maps, raw and
@@ -485,10 +470,10 @@ def check_halo_conv(name, level, t, cin, cout, rng, device,
     ms, bound by) of the epilogue form, and with `unfused` the same conv's
     `unfused_ms`."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
-        halo_conv, halo_conv_plain)
+        halo_conv, halo_conv_plain, kernel_plan)
     B, T = level.keys.shape
     cells = t ** 3
-    cs, cw, ring, kg = require_plan(name, T, t, cin, cout)
+    cs, cw, ring, kg, _ = kernel_plan(t, 3, cin, cout)
     live = level.halo.blive[..., None, None].cpu().numpy()
     x = rng.standard_normal((B, T, cells, cin), dtype=np.float32) * live
     w = rng.standard_normal((27, cin, cout), dtype=np.float32) \
@@ -623,17 +608,11 @@ def check_dw(name, level, t, cin, cout, rng, device, unfused: bool = False):
     max|err| <= DW_RTOL * max|ref|. Returns (max_abs_err, kernel ms, plain
     ms, bound ms, bound by), and with `unfused` the unfused path's d_W
     (cuDNN's wgrad) ms."""
-    from uresnet_pytorch_tpu_torch.ops import cuda
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv_dw import (
         dw_plan, halo_conv_dw, halo_conv_dw_plain)
     B, T = level.keys.shape
     cells = t ** 3
-    v = cuda.library().halo_conv_dw_plan(T, t, 3, cin, cout)
-    plan = (v >> 16, (v >> 8) & 255, (v >> 4) & 15, v & 15)
-    want = dw_plan(t, 3, cin, cout)
-    require(want is not None and plan == tuple(want),
-            f"halo_conv_dw {name}: the kernel plans (cs, tiles, wm, mw) "
-            f"{plan}, ops/cuda/halo_conv_dw.py:dw_plan {want}")
+    plan = tuple(dw_plan(t, 3, cin, cout))
     live = level.halo.blive[..., None, None].cpu().numpy()
     x = rng.standard_normal((B, T, cells, cin), dtype=np.float32) * live
     g = rng.standard_normal((B, T, cells, cout), dtype=np.float32) * live
@@ -672,9 +651,9 @@ def check_dx(name, level, t, cin, cout, rng, device, unfused: bool = False):
     (max_abs_err, kernel ms, plain ms, bound ms, bound by), and with
     `unfused` the unfused path's d_x (cuDNN's dgrad, then kernel E) ms."""
     from uresnet_pytorch_tpu_torch.ops.cuda.halo_conv import (
-        flip_weights, halo_conv, halo_conv_plain)
+        flip_weights, halo_conv, halo_conv_plain, kernel_plan)
     B, T = level.keys.shape
-    ring, kg = require_plan(f"d_x {name}", T, t, cout, cin)[2:]
+    _, _, ring, kg, _ = kernel_plan(t, 3, cout, cin)
     live = level.halo.blive[..., None, None].cpu().numpy()
     g = rng.standard_normal((B, T, t ** 3, cout), dtype=np.float32) * live
     w = rng.standard_normal((27, cin, cout), dtype=np.float32) \

@@ -7,7 +7,12 @@ bf16: held to the reference's Pallas kernels in interpret mode
 (`halo_conv_fwd`, `fused_halo_conv_bn_act`) at 1e-2, the bound of
 tests/test_halo_conv_fused.py. Cases: a v2-aligned shape, a v1 shape
 (t=2, C=12), Cin=1 (the stem) and dead tile blocks. The CUDA kernel itself
-is checked against this plain version on the card by chip_smoke.py."""
+is checked against this plain version on the card by chip_smoke.py; the
+arguments the wrappers of kernels B and C pass it, their plans included,
+are held here to the C entry points' definitions."""
+
+import ctypes
+import re
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +25,11 @@ from uresnet_pytorch_tpu.ops.halo import build_halo26 as j_build_halo26
 from uresnet_pytorch_tpu.ops.halo import halo26_extend_xla
 from uresnet_pytorch_tpu.ops.pallas.halo_conv import (
     fused_halo_conv_bn_act, halo_conv_fwd, toeplitz_weights)
+from uresnet_pytorch_tpu_torch.ops import cuda
 from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv as hc
-from uresnet_pytorch_tpu_torch.ops.halo import (body_cells, build_halo26,
-                                                halo26_extend)
+from uresnet_pytorch_tpu_torch.ops.cuda import halo_conv_dw as hcdw
+from uresnet_pytorch_tpu_torch.ops.halo import (Halo26Spec, body_cells,
+                                                build_halo26, halo26_extend)
 from tests.test_torch_model import one_torch_thread  # noqa: F401
 
 _DN = ("NDHWC", "DHWIO", "NDHWC")
@@ -178,9 +185,10 @@ def test_kernel_reads_model_rows_without_pack():
     assert kw.shape == (16, 27 * 16)
     np.testing.assert_array_equal(kw.numpy(),
                                   w.transpose(2, 0, 1).reshape(16, -1))
-    args = hc.launch_args(xt, kw, spec, 4, 3, at, bt, 0.1, mt, out)
+    plan = hc.kernel_plan(4, 3, 16, 16)
+    args = hc.launch_args(xt, kw, spec, 4, 3, at, bt, 0.1, mt, out, plan)
     assert args[0] == xt.data_ptr() and args[1] == kw.data_ptr()
-    assert args[-6:] == (2, 64, 4, 3, 16, 16)
+    assert args[-11:] == (2, 64, 4, 3, 16, 16, *plan)
     # Cin = 1: the 27 offsets packed into a depth of 32, not 27 x 16
     stem = hc.kernel_weights(torch.ones(27, 1, 8))
     assert stem.shape == (8, 32) and stem[:, :27].eq(1).all()
@@ -241,22 +249,22 @@ def _im2col(x, spec, t, kp):
 
 
 @pytest.mark.parametrize("t,Cin,Cout,plan", [
-    pytest.param(4, 1, 128, (128, 1, 0, 0), id="stem-128"),
-    pytest.param(4, 12, 40, (40, 12, 0, 0), id="packed-12"),
-    pytest.param(4, 16, 128, (128, 16, 0, 0), id="t4-16-128"),
-    pytest.param(2, 24, 32, (32, 32, 0, 0), id="t2-24-32"),
-    pytest.param(2, 128, 64, (64, 32, 4, 3), id="dec-L3-slices-chunks"),
-    pytest.param(4, 12, 12, (16, 12, 0, 0), id="cout12-pad16"),
-    pytest.param(2, 36, 36, (40, 48, 0, 0), id="cout36-pad40-cin-pad48"),
-    pytest.param(2, 60, 60, (32, 64, 0, 0), id="cout60-two-slices"),
-    pytest.param(2, 72, 36, (40, 16, 0, 0), id="cout36-chunks"),
-    pytest.param(2, 160, 160, (160, 32, 5, 1), id="cin160-ten-slices"),
-    pytest.param(2, 256, 256, (256, 16, 5, 3), id="cin256-32-slices"),
-    pytest.param(8, 16, 16, (16, 16, 0, 0), id="t8-slabs"),
-    pytest.param(8, 96, 48, (64, 48, 4, 3), id="t8-slabs-96-48"),
-    pytest.param(8, 128, 64, (64, 64, 6, 1), id="t8-slabs-128-64"),
-    pytest.param(2, 384, 256, (256, 16, 5, 3), id="wide-cin384"),
-    pytest.param(4, 128, 96, (96, 64, 8, 1), id="wide-t4-128-96"),
+    pytest.param(4, 1, 128, (128, 1, 0, 0, 0), id="stem-128"),
+    pytest.param(4, 12, 40, (40, 12, 0, 0, 0), id="packed-12"),
+    pytest.param(4, 16, 128, (128, 16, 0, 0, 0), id="t4-16-128"),
+    pytest.param(2, 24, 32, (32, 32, 0, 0, 0), id="t2-24-32"),
+    pytest.param(2, 128, 64, (64, 32, 4, 3, 0), id="dec-L3-slices-chunks"),
+    pytest.param(4, 12, 12, (16, 12, 0, 0, 0), id="cout12-pad16"),
+    pytest.param(2, 36, 36, (40, 48, 0, 0, 0), id="cout36-pad40-cin-pad48"),
+    pytest.param(2, 60, 60, (32, 64, 0, 0, 0), id="cout60-two-slices"),
+    pytest.param(2, 72, 36, (40, 16, 0, 0, 1), id="cout36-chunks"),
+    pytest.param(2, 160, 160, (160, 32, 5, 1, 0), id="cin160-ten-slices"),
+    pytest.param(2, 256, 256, (256, 16, 5, 3, 0), id="cin256-32-slices"),
+    pytest.param(8, 16, 16, (16, 16, 0, 0, 0), id="t8-slabs"),
+    pytest.param(8, 96, 48, (64, 48, 4, 3, 0), id="t8-slabs-96-48"),
+    pytest.param(8, 128, 64, (64, 64, 6, 1, 0), id="t8-slabs-128-64"),
+    pytest.param(2, 384, 256, (256, 16, 5, 3, 0), id="wide-cin384"),
+    pytest.param(4, 128, 96, (96, 64, 8, 1, 0), id="wide-t4-128-96"),
 ])
 def test_kernel_weights_rebuild_the_conv(t, Cin, Cout, plan):
     """The kernel's GEMM, rebuilt in torch from its weight operand: the
@@ -272,7 +280,7 @@ def test_kernel_weights_rebuild_the_conv(t, Cin, Cout, plan):
     _, spec = _specs(keys)
     xt, wt = torch.from_numpy(x), torch.from_numpy(w)
     assert hc.kernel_plan(t, 3, Cin, Cout) == plan
-    cs, cw, ring, _ = plan
+    cs, cw, ring, _, _ = plan
     cpad = Cin if Cin < 16 else -(-Cin // 16) * 16
     ref = hc.halo_conv_plain(xt, wt, spec, t, 3).numpy()
     if ring:
@@ -378,3 +386,82 @@ def test_staged_input_aligns_the_wide_path(Cin, Cout, offset, copied):
     assert (got is not x) == copied
     assert got.data_ptr() % 16 == 0 or not plan.ring
     assert torch.equal(got, x) and got.is_contiguous()
+
+
+def _c_entry(name: str) -> list:
+    """(ctypes type, parameter name) of each parameter of the C entry
+    point `name`, read from its definition in csrc/: a pointer is
+    c_void_p, an int c_int, a float c_float."""
+    for src in cuda.sources():
+        m = re.search(r"\nint " + name + r"\(([^)]*)\)\s*\{", src.read_text())
+        if m:
+            break
+    else:
+        raise AssertionError(f"no C entry point {name}")
+    params = []
+    for decl in m.group(1).split(","):
+        ctype, pname = decl.strip().rsplit(None, 1)
+        kind = ctypes.c_void_p if "*" in ctype + pname else \
+            {"int": ctypes.c_int, "float": ctypes.c_float}[ctype]
+        params.append((kind, pname.lstrip("*")))
+    return params
+
+
+@pytest.mark.parametrize("entry", ["halo_conv_raw", "halo_conv_bn_act",
+                                   "halo_conv_dw"])
+@pytest.mark.parametrize("t,Cin,Cout", [
+    pytest.param(4, 16, 16, id="resident-t4-16-16"),
+    pytest.param(2, 128, 128, id="wide-L3-128-128"),
+    pytest.param(4, 1, 16, id="packed-stem-1-16"),
+    pytest.param(8, 96, 48, id="t8-slabs-96-48"),
+])
+def test_launch_args_follow_the_c_entry(entry, t, Cin, Cout):
+    """The arguments a wrapper builds for kernel B's raw or epilogue entry
+    point, or for kernel C's, have the arity and ctypes types of
+    `ops/cuda._SIGNATURES`, which are the C definition's, and carry the
+    tensors, the shape and the host's plan (`kernel_plan` / `dw_plan`,
+    which the kernels only check) field by field where the C entry takes
+    each by name. Only the card could show a mismatch otherwise."""
+    params = _c_entry(entry)
+    assert [kind for kind, _ in params] == cuda._SIGNATURES[entry]
+    B, T, cells = 2, 5, t ** 3
+    x = torch.zeros(B, T, cells, Cin, dtype=torch.bfloat16)
+    halo = Halo26Spec(torch.zeros(B, 26, T, dtype=torch.int32),
+                      torch.zeros(B, 26, T, dtype=torch.bool),
+                      torch.ones(B, T, dtype=torch.bool), None)
+    tensors = {"x": x, "idx": halo.idx, "ok": halo.ok, "live": halo.blive}
+    if entry == "halo_conv_dw":
+        plan = hcdw.dw_plan(t, 3, Cin, Cout)
+        g = torch.zeros(B, T, cells, Cout, dtype=torch.bfloat16)
+        dw = torch.zeros(27, Cin, Cout)
+        args = hcdw.launch_args(x, g, halo, t, 3, dw, plan)
+        tensors.update(g=g, dw=dw)
+    else:
+        plan = hc.kernel_plan(t, 3, Cin, Cout)
+        w = torch.zeros(27, Cin, Cout, dtype=torch.bfloat16)
+        wt = hc.wide_weights(w, plan.cs, plan.cw) if plan.ring \
+            else hc.kernel_weights(w)
+        out = torch.empty(B, T, cells, Cout, dtype=torch.bfloat16)
+        ep = (None,) * 4
+        if entry == "halo_conv_bn_act":
+            ep = (torch.ones(Cout), torch.zeros(Cout), 0.1,
+                  torch.ones(B, T, cells, dtype=torch.bool))
+            tensors.update(a=ep[0], b=ep[1], mask=ep[3])
+        a, b, alpha, mask = ep
+        args = hc.launch_args(x, wt, halo, t, 3, a, b, alpha, mask, out,
+                              plan)
+        tensors.update(wt=wt, out=out)
+    assert plan is not None
+    args = args + (0,)                      # the stream
+    assert len(args) == len(params)
+    for v, (kind, pname) in zip(args, params):
+        assert isinstance(v, float if kind is ctypes.c_float else int), pname
+        kind.from_param(v)
+    by_name = dict(zip((pname for _, pname in params), args))
+    assert {n for kind, n in params if kind is ctypes.c_void_p} == \
+        set(tensors) | {"stream"}
+    for n, v in tensors.items():
+        assert by_name[n] == v.data_ptr(), n
+    want = dict(B=B, T=T, t=t, dim=3, Cin=Cin, Cout=Cout, **plan._asdict())
+    assert {n: v for n, v in by_name.items() if n in want} == want
+    assert [n for kind, n in params if kind is ctypes.c_int] == list(want)

@@ -10,10 +10,11 @@ reference's combined backward `_bwd_impl` in interpret mode, the channel
 concat pair against autodiff of the reference's pair conv, and an input
 that needs no gradient (the stem) skips the d_x conv. All f32, at 1e-4
 (the bound of tests/test_halo_conv_fused.py). The kernel's plan
-(`dw_plan`, mirrored from its C code) is held to the plain version by
-rebuilding d_W in torch slice by slice and warp by warp as the plan splits
-it, and the wrapper's refusals to the kernel's limits. The CUDA kernel
-itself is held to this plain version on the card by chip_smoke.py."""
+(`dw_plan`, which the wrapper passes to the kernel) is held to the plain
+version by rebuilding d_W in torch slice by slice and warp by warp as the
+plan splits it, and the wrapper's refusals to the kernel's limits. The
+CUDA kernel itself is held to this plain version on the card by
+chip_smoke.py."""
 
 from unittest import mock
 

@@ -58,9 +58,11 @@
 //   blocks (blockIdx.y, at most 128 channels a slice), each staging the
 //   extended rows itself, and the block runs a pipeline of two buffers of
 //   channel chunks (at most 128 channels) instead: the next chunk's copies
-//   fly while the MMAs run on this one. The plan takes the pipeline where
-//   it needs fewer slices (dec L3: 4 slices, not 8), or where Cin is wider
-//   than one chunk, and the widest chunks that fit. At 256 wide a slice
+//   fly while the MMAs run on this one. The plan, chosen on the host
+//   (ops/cuda/halo_conv.py:kernel_plan) and checked by make_plan below,
+//   takes the pipeline where it needs fewer slices (dec L3: 4 slices, not
+//   8), or where Cin is wider than one chunk, and the widest chunks that
+//   fit. At 256 wide a slice
 //   would be 8 channels, each of 32 slices re-reading the input: such
 //   shapes take the wide path (below) where the input stages by vectors.
 //   With one block per SM two warps share each 16 rows, one per half of
@@ -975,56 +977,22 @@ int dispatch_wide(const void* x, const void* wt, const void* idx, const void* ok
   }
 }
 
-// The wide plan of a shape whose resident plan splits Cout (p holds that
-// plan's geometry): N = Cout rounded up to 32 where it is at most 256,
-// else slices of 128; the widest channel chunk (a multiple of 16 dividing
-// the padded Cin, at most 128) whose two buffers of both groups' extended
-// rows fit beside at least 4 weight tiles (one offset's N x cw); stages of
-// the most offsets (9, 3 or 1, dividing K) of which 4 fit, and as many
-// stages as fit, up to kMaxRing: the stages in flight take long enough to
-// cover the next stages' copies (at 256 wide, 16-channel chunks and 5
-// stages of 3 offsets ran 1.12x faster on an H100 than 32-channel chunks
-// and 3 stages of 1). Leaves p as it is (ring 0) where none fits.
-void plan_wide(Plan& p) {
-  const int n = p.Cout <= kWideMaxN ? (p.Cout + 31) / 32 * 32 : 128;
-  for (int cw = p.cpad < kMaxChunk ? p.cpad : kMaxChunk; cw >= 16; cw -= 16) {
-    if (p.cpad % cw) continue;
-    const size_t ext = ((size_t)2 * p.tiles * p.gcells * (cw + kPad) * sizeof(__nv_bfloat16)
-                        + 15) / 16 * 16;
-    const size_t tile = (size_t)n * cw * sizeof(__nv_bfloat16);
-    if (2 * ext + 4 * tile > (size_t)kMaxSmem) continue;
-    const size_t room = (size_t)kMaxSmem - 2 * ext;
-    p.kg = 1;
-    for (int kg = 9; kg > 1; kg /= 3)
-      if (p.K % kg == 0 && room >= 4 * kg * tile) {
-        p.kg = kg;
-        break;
-      }
-    const size_t stage = p.kg * tile, fit = room / stage;
-    p.ring = fit < (size_t)kMaxRing ? (int)fit : kMaxRing;
-    p.cs = n;
-    p.coutp = (p.Cout + n - 1) / n * n;
-    p.cw = cw;
-    p.nch = p.cpad / cw;
-    p.sa = cw + kPad;
-    p.ext_bytes = ext;
-    p.stage_bytes = stage;
-    p.smem = p.ring * stage + 2 * ext;
-    p.items = (p.groups + 1) / 2;
-    p.by_unit = FastDiv(cw / 8);
-    return;
-  }
-}
-
-// The plan: groups of 64 rows; Cout slices and staging as below; two warps
-// per 16 rows where only one block fits an SM. Where that splits Cout into
-// slices and the input stages by vectors, the wide path instead
-// (plan_wide). Mirrored by ops/cuda/halo_conv.py:kernel_plan.
-int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
+// The launch of a plan chosen on the host (ops/cuda/halo_conv.py:
+// kernel_plan): cs output channels per block, cw channels per staged
+// chunk, the wide path's ring of weight stages of kg offsets each (both 0
+// on the resident path), and on the resident path one buffer of a group's
+// whole extended rows (ahead 0) or two buffers of channel chunks (ahead
+// 1). Fills in this shape's groups, strides, byte sizes and warps per 16
+// rows, and refuses (cudaErrorInvalidValue) a shape or plan outside the
+// kernels' compile-time limits or with no template instance. The wide
+// path stages by vectors only, so dispatch refuses it an x off 16 bytes
+// (the wrapper copies such an x first); the resident path stages that x
+// by scalars.
+int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, int cs, int cw,
+              int ring, int kg, int ahead, bool aligned) {
   if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
-  p.coutp = (Cout + 7) / 8 * 8;
   p.cells = ipow(t, dim);
   p.ecells = ipow(t + 2, dim);
   p.K = ipow(3, dim);
@@ -1053,63 +1021,53 @@ int make_plan(Plan& p, int B, int T, int t, int dim, int Cin, int Cout, bool ali
   p.cpad = packed ? Cin : (Cin + 15) / 16 * 16;
   p.kp = packed ? (p.K * Cin + 15) / 16 * 16 : p.K * p.cpad;
   p.sw = p.kp + kPad;
-  // the wide path is chosen by shape alone, as kernel_plan does; it stages
-  // by vectors only, so dispatch refuses it an x off 16 bytes (the wrapper
-  // copies such an x first). The resident path stages that x by scalars.
   const bool vec_shape = !packed && Cin % 8 == 0;
   p.vec = vec_shape && aligned;
-  auto ext_bytes = [&](int cw) {
-    const size_t sa = packed ? cw : cw + kPad;
-    return ((size_t)p.tiles * p.gcells * sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
-  };
-  // fewest Cout slices (n-tiles d per slice, at most kMaxSlice channels)
-  // whose weights and `bufs` buffers of chunk width cw fit, with the
-  // widest cw (at most kMaxChunk); 0 if none
-  const int n = p.coutp / 8;
-  auto fit = [&](int bufs, bool chunks, int* cw_out) {
-    for (int d = n < kMaxSlice / 8 ? n : kMaxSlice / 8; d >= 1; --d) {
-      if (n % d) continue;
-      const size_t wb = (size_t)d * 8 * p.sw * sizeof(__nv_bfloat16);
-      const int widest = chunks && p.cpad > kMaxChunk ? kMaxChunk : p.cpad;
-      for (int cw = widest; cw >= (chunks ? 16 : p.cpad); cw -= 16) {
-        if (p.cpad % cw) continue;
-        if (wb + bufs * ext_bytes(cw) <= (size_t)kMaxSmem) {
-          *cw_out = cw;
-          return d;
-        }
-      }
-    }
-    return 0;
-  };
-  // one buffer of a group's whole extended rows, staged and then
-  // multiplied; or, where that needs more Cout slices or Cin is wider than
-  // one chunk, a pipeline of two buffers of channel chunks (the
-  // accumulators stay in registers across a group's chunks)
-  int cw1 = 0, cw2 = 0;
-  const int d1 = p.cpad <= kMaxChunk ? fit(1, false, &cw1) : 0;
-  const int d2 = packed ? 0 : fit(2, true, &cw2);
-  p.ahead = d2 > d1;
-  const int d = p.ahead ? d2 : d1;
-  p.cs = d * 8;
-  p.cw = p.ahead ? cw2 : cw1;
-  p.w_bytes = (size_t)p.cs * p.sw * sizeof(__nv_bfloat16);
-  if (!p.cs) return (int)cudaErrorInvalidValue;
-  p.nch = p.cpad / p.cw;
-  p.sa = packed ? Cin : p.cw + kPad;
-  p.ext_bytes = ext_bytes(p.cw);
-  p.smem = p.w_bytes + (p.ahead ? 2 : 1) * p.ext_bytes;
-  p.wn = (2 * p.smem > (size_t)kMaxSmem && (p.cs / 8) % 2 == 0) ? 2 : 1;
-  const int unit = p.vec ? 8 : 1;
-  p.by_unit = FastDiv(p.cw / unit);
+  // a chunk: all of a packed Cin, else a multiple of 16 dividing the
+  // padded Cin
+  if (packed ? cw != Cin : (cw < 16 || cw > kMaxChunk || cw % 16 || p.cpad % cw))
+    return (int)cudaErrorInvalidValue;
+  p.cs = cs;
+  p.cw = cw;
+  p.nch = p.cpad / cw;
+  p.ring = ring;
+  p.kg = kg;
+  p.ahead = ahead;
+  if (ring) {   // the wide path: N = cs in 32-column wgmma tiles
+    if (!vec_shape || ahead || ring < 0 || ring > kMaxRing || kg < 1 || p.K % kg || cs < 32 ||
+        cs % 32 || cs > kWideMaxN)
+      return (int)cudaErrorInvalidValue;
+    p.coutp = (Cout + cs - 1) / cs * cs;
+    p.sa = cw + kPad;
+    p.ext_bytes = ((size_t)2 * p.tiles * p.gcells * p.sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
+    p.stage_bytes = (size_t)kg * cs * cw * sizeof(__nv_bfloat16);
+    p.w_bytes = 0;
+    p.smem = ring * p.stage_bytes + 2 * p.ext_bytes;
+    p.wn = 1;
+    p.items = (p.groups + 1) / 2;
+    p.by_unit = FastDiv(cw / 8);
+  } else {      // resident: one buffer of a group's whole extended rows,
+    //             or (ahead) a pipeline of two buffers of chunks
+    if (kg || (ahead ? packed : p.nch != 1) ||
+        cs < 8 || cs % 8 || cs > kMaxSlice || ((Cout + 7) / 8 * 8) % cs)
+      return (int)cudaErrorInvalidValue;
+    p.coutp = (Cout + 7) / 8 * 8;
+    p.sa = packed ? Cin : cw + kPad;
+    p.ext_bytes = ((size_t)p.tiles * p.gcells * p.sa * sizeof(__nv_bfloat16) + 15) / 16 * 16;
+    p.stage_bytes = 0;
+    p.w_bytes = (size_t)cs * p.sw * sizeof(__nv_bfloat16);
+    p.smem = p.w_bytes + (ahead ? 2 : 1) * p.ext_bytes;
+    // two warps per 16 rows, each a half of the slice, where only one
+    // block fits an SM
+    p.wn = (2 * p.smem > (size_t)kMaxSmem && (cs / 8) % 2 == 0) ? 2 : 1;
+    p.items = 0;
+    p.by_unit = FastDiv(cw / (p.vec ? 8 : 1));
+  }
+  if (p.smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   p.by_gcells = FastDiv(p.gcells);
   p.by_per_event = FastDiv(p.per_event);
   p.by_subs = FastDiv(p.subs);
   p.by_cin = FastDiv(Cin);
-  p.ring = 0;
-  p.stage_bytes = 0;
-  p.items = 0;
-  p.kg = 0;
-  if (vec_shape && p.coutp / p.cs > 1) plan_wide(p);
   return 0;
 }
 
@@ -1135,9 +1093,11 @@ template <bool kEpilogue>
 int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
              const void* live, const void* a, const void* b, const void* mask,
              float alpha, void* out, int B, int T, int t, int dim, int Cin,
-             int Cout, cudaStream_t stream) {
+             int Cout, int cs, int cw, int ring, int kg, int ahead,
+             cudaStream_t stream) {
   Plan p;
-  const int err = make_plan(p, B, T, t, dim, Cin, Cout, (uintptr_t)x % 16 == 0);
+  const int err = make_plan(p, B, T, t, dim, Cin, Cout, cs, cw, ring, kg, ahead,
+                            (uintptr_t)x % 16 == 0);
   if (err) return err;
   if (p.groups == 0) return 0;
   if (p.ring)
@@ -1161,36 +1121,30 @@ int dispatch(const void* x, const void* wt, const void* idx, const void* ok,
 
 extern "C" {
 
-// bfloat16 tensors, f32 affine; wt is the GEMM's B operand (Cout padded to
-// 8 with zero rows, kp), kp =
-// 3^dim x round_up(Cin, 16) offset-major, or round_up(3^dim x Cin, 16) with
-// the offsets packed for Cin < 16 (ops/cuda/halo_conv.py:kernel_weights),
-// zero-padded. Returns a cudaError_t (0 = launched).
+// bfloat16 tensors, f32 affine; wt is the GEMM's B operand: on the
+// resident path (ring 0) (Cout padded to 8 with zero rows, kp), kp =
+// 3^dim x round_up(Cin, 16) offset-major, or round_up(3^dim x Cin, 16)
+// with the offsets packed for Cin < 16 (ops/cuda/halo_conv.py:
+// kernel_weights), zero-padded; on the wide path the (slice, chunk,
+// offset) tiles of ops/cuda/halo_conv.py:wide_weights. (cs, cw, ring, kg,
+// ahead) is the plan (make_plan above). Returns a cudaError_t (0 =
+// launched).
 int halo_conv_raw(const void* x, const void* wt, const void* idx, const void* ok,
                   const void* live, void* out, int B, int T, int t, int dim,
-                  int Cin, int Cout, void* stream) {
+                  int Cin, int Cout, int cs, int cw, int ring, int kg, int ahead,
+                  void* stream) {
   return dispatch<false>(x, wt, idx, ok, live, nullptr, nullptr, nullptr, 1.f, out,
-                         B, T, t, dim, Cin, Cout, (cudaStream_t)stream);
+                         B, T, t, dim, Cin, Cout, cs, cw, ring, kg, ahead,
+                         (cudaStream_t)stream);
 }
 
 int halo_conv_bn_act(const void* x, const void* wt, const void* idx,
                      const void* ok, const void* live, const void* a,
                      const void* b, const void* mask, float alpha, void* out,
-                     int B, int T, int t, int dim, int Cin, int Cout,
-                     void* stream) {
+                     int B, int T, int t, int dim, int Cin, int Cout, int cs,
+                     int cw, int ring, int kg, int ahead, void* stream) {
   return dispatch<true>(x, wt, idx, ok, live, a, b, mask, alpha, out, B, T, t, dim,
-                        Cin, Cout, (cudaStream_t)stream);
-}
-
-// The plan's output channels per block, channels per staged chunk, and
-// the wide path's weight stages in the ring and offsets per stage (both 0
-// on the resident path), as kg << 24 | ring << 20 | cs << 10 | cw (0 if it
-// takes no such shape): chip_smoke.py holds
-// ops/cuda/halo_conv.py:kernel_plan to it.
-int halo_conv_plan(int T, int t, int dim, int Cin, int Cout) {
-  Plan p;
-  return make_plan(p, 1, T, t, dim, Cin, Cout, true)
-             ? 0 : (p.kg << 24) | (p.ring << 20) | (p.cs << 10) | p.cw;
+                        Cin, Cout, cs, cw, ring, kg, ahead, (cudaStream_t)stream);
 }
 
 const char* kernel_error_string(int err) {

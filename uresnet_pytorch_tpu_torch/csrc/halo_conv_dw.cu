@@ -74,7 +74,7 @@ using halo::pack2;
 constexpr int kWarps = 9;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;                   // bf16 pad per smem row (bank spread)
-constexpr int kChunkCells = 256;          // cells per chunk where tiles are smaller
+constexpr int kMaxSlice = 128;            // Cout per block: 16 n-tiles (the instances)
 constexpr int kNbrPerThread = 3;          // map entries (tiles x K) per thread
 constexpr int kMaxAcc = 120;              // f32 accumulators a lane may hold
 constexpr size_t kMaxSmem = 232448;       // dynamic shared memory a block may use
@@ -410,9 +410,14 @@ int launch(const void* x, const void* g, const void* idx, const void* ok,
   return (int)cudaGetLastError();
 }
 
-// The plan: chunks of whole tiles; M tiles, warp groups, Cout slices and
-// buffers as above. Mirrored by ops/cuda/halo_conv_dw.py:dw_plan.
-int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool aligned) {
+// The launch of a plan chosen on the host (ops/cuda/halo_conv_dw.py:
+// dw_plan): cs output channels per block, `tiles` whole tiles a chunk,
+// and wm warp groups of mw M tiles a warp. Fills in this shape's chunks,
+// M tiles, strides and byte sizes, and refuses (cudaErrorInvalidValue) a
+// shape or plan outside the kernel's compile-time limits, with no
+// template instance, or whose warp groups leave an M tile out.
+int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, int cs,
+              int tiles, int wm, int mw, bool aligned) {
   if (dim < 2 || dim > 3 || t < 2 || Cin < 1 || Cout < 1 || B < 0 || T < 0)
     return (int)cudaErrorInvalidValue;
   p.T = T; p.t = t; p.dim = dim; p.Cin = Cin; p.Cout = Cout;
@@ -421,13 +426,11 @@ int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool a
   p.cells = ipow(t, dim);
   p.ecells = ipow(t + 2, dim);
   p.K = ipow(3, dim);
-  if (p.cells <= kChunkCells && kChunkCells % p.cells == 0)
-    p.tiles = kChunkCells / p.cells;
-  else if (p.cells % 16 == 0)
-    p.tiles = 1;
-  else
+  // a chunk: whole tiles in whole 16-cell depth steps, its map entries
+  // within the threads' registers
+  if (tiles < 1 || tiles * p.cells % 16 || tiles * p.K > kNbrPerThread * kThreads)
     return (int)cudaErrorInvalidValue;
-  if (p.tiles * p.K > kNbrPerThread * kThreads) return (int)cudaErrorInvalidValue;
+  p.tiles = tiles;
   p.chunk = p.tiles * p.cells;
   p.ksteps = p.chunk / 16;
   p.per_event = (T + p.tiles - 1) / p.tiles;
@@ -437,28 +440,25 @@ int make_plan(DwPlan& p, int B, int T, int t, int dim, int Cin, int Cout, bool a
   p.sa = p.packed ? Cin : 16 + kPad;
   p.cslices = p.packed ? 1 : (Cin + 15) / 16;
   p.mtiles = p.packed ? (p.K * Cin + 15) / 16 : p.K;
-  p.wm = p.mtiles >= 9 ? 9 : (p.mtiles >= 3 ? 3 : 1);
-  p.mw = (p.mtiles + p.wm - 1) / p.wm;
+  // warp groups that split the nine warps, up to 3 M tiles a warp (2 only
+  // packed: the instances), covering every M tile
+  if ((wm != 1 && wm != 3 && wm != 9) || mw < 1 || mw > 3 || (!p.packed && mw == 2) ||
+      wm * mw < p.mtiles)
+    return (int)cudaErrorInvalidValue;
+  p.wm = wm;
+  p.mw = mw;
   p.nph = kWarps / p.wm;
-  if (p.mw > 3) return (int)cudaErrorInvalidValue;
   p.vec = Cin % 8 == 0 && aligned;
   p.ext_elems = ((size_t)p.tiles * p.ecells * p.sa + 7) / 8 * 8;
   p.table_bytes = ((size_t)(p.ecells + p.chunk + p.tiles * p.K) * sizeof(int) + 15) / 16 * 16;
-  // the widest Cout slice (at most 16 n-tiles) within the accumulator
-  // budget whose buffer fits
-  const int n = p.coutp / 8;
-  p.cs = 0;
-  for (int d = n < 16 ? n : 16; d >= 1 && !p.cs; --d) {
-    if (n % d || p.mw * d * 4 > kMaxAcc) continue;
-    const size_t g_elems = (size_t)p.chunk * (d * 8 + kPad);
-    const size_t buf = (p.ext_elems + g_elems) * sizeof(__nv_bfloat16);
-    if (p.table_bytes + buf > kMaxSmem) continue;
-    p.cs = d * 8;
-  }
-  if (!p.cs) return (int)cudaErrorInvalidValue;
+  // a Cout slice within the accumulator budget
+  if (cs < 8 || cs % 8 || cs > kMaxSlice || p.coutp % cs || p.mw * (cs / 8) * 4 > kMaxAcc)
+    return (int)cudaErrorInvalidValue;
+  p.cs = cs;
   p.sg = p.cs + kPad;
   p.g_elems = (size_t)p.chunk * p.sg;
   p.smem = p.table_bytes + (p.ext_elems + p.g_elems) * sizeof(__nv_bfloat16);
+  if (p.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const int unit = p.vec ? 8 : 1;
   p.by_unit = FastDiv(p.width / unit);
   p.by_ecells = FastDiv(p.ecells);
@@ -492,13 +492,16 @@ int dispatch_nt(const void* x, const void* g, const void* idx, const void* ok,
 extern "C" {
 
 // x, g bfloat16 (g 16-byte aligned where Cout % 8 == 0), dw (K, Cin, Cout)
-// float32 zeroed by the caller. Returns a cudaError_t (0 = launched).
+// float32 zeroed by the caller; (cs, tiles, wm, mw) is the plan
+// (make_plan above). Returns a cudaError_t (0 = launched).
 int halo_conv_dw(const void* x, const void* g, const void* idx, const void* ok,
                  const void* live, void* dw, int B, int T, int t, int dim,
-                 int Cin, int Cout, void* stream) {
+                 int Cin, int Cout, int cs, int tiles, int wm, int mw,
+                 void* stream) {
   if (Cout % 8 == 0 && (uintptr_t)g % 16) return (int)cudaErrorInvalidValue;
   DwPlan p;
-  const int err = make_plan(p, B, T, t, dim, Cin, Cout, (uintptr_t)x % 16 == 0);
+  const int err = make_plan(p, B, T, t, dim, Cin, Cout, cs, tiles, wm, mw,
+                            (uintptr_t)x % 16 == 0);
   if (err) return err;
   if (p.chunks == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
@@ -510,15 +513,6 @@ int halo_conv_dw(const void* x, const void* g, const void* idx, const void* ok,
   }
   if (p.mw == 3) return dispatch_nt<3, false>(x, g, idx, ok, live, dw, p, st);
   return dispatch_nt<1, false>(x, g, idx, ok, live, dw, p, st);
-}
-
-// The plan of a shape, as cs << 16 | tiles << 8 | wm << 4 | mw
-// (0 if it takes no such shape): chip_smoke.py holds
-// ops/cuda/halo_conv_dw.py:dw_plan to it.
-int halo_conv_dw_plan(int T, int t, int dim, int Cin, int Cout) {
-  DwPlan p;
-  if (make_plan(p, 1, T, t, dim, Cin, Cout, true)) return 0;
-  return p.cs << 16 | p.tiles << 8 | p.wm << 4 | p.mw;
 }
 
 }  // extern "C"

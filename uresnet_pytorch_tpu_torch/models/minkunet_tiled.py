@@ -24,10 +24,10 @@ the configuration's `bn_eps` and `bn_momentum` (MinkowskiEngine's eps
 1e-5 and torch momentum 0.1 are `bn_eps=1e-5`, `bn_momentum=0.9`).
 
 How it runs on the tile engine:
-- every BN is the operator `norm_act` with the re-mask (`_bn_flat` for
-  BN and ReLU); a block's second BN takes the residual inside the
-  operator (`norm_act(..., residual=r)`), and a projection's BN is the
-  operator at slope 1 (no activation);
+- every BN is the U-ResNet's `BNAct` (the operator `norm_act`) with the
+  re-mask (`_bn_flat` for BN and ReLU); a block's second BN takes the
+  residual inside the operator (`residual=r`), and a projection's BN is
+  the operator at slope 1 (no activation);
 - the 5^dim stem runs unfused: the halo extend at a halo of 2 (kernel D:
   two layers of the 26 neighbor tiles, since 2 <= t) and one cuDNN VALID
   conv; its weight is (5^dim, 1, INIT_DIM) and its input needs no
@@ -37,9 +37,11 @@ How it runs on the tile engine:
 - the stride-2 convs are `downsample_conv_tiled` / `upsample_conv_tiled`;
 - the decoder hands its first block the (up, skip) pair, which conv1 and
   the projection take channel-separably, never concatenated in memory;
-- stages recompute in backward under `cfg.remat_mode`, as the U-ResNet's
-  (spans `stage.stem`, `stage.enc{l}`, `stage.dec{l}`, `stage.head`);
-  the 1x1 projections with their BN run in the span `shortcut`.
+- the graph build, the stages' recompute under `cfg.remat_mode` and the
+  reorder to blob rows are the U-ResNet's (`tile_graph`, `remat_stage`,
+  `blob_order`; spans `stage.stem`, `stage.enc{l}`, `stage.dec{l}`,
+  `stage.head`); the 1x1 projections with their BN run in the span
+  `shortcut`.
 
 Departures from `examples/minkunet.py`: weights are initialized as the
 port's other models (He normal over fan-in K Cin for conv stacks,
@@ -64,14 +66,12 @@ from torch import nn
 from uresnet_pytorch_tpu_torch.config import URESNetConfig
 from uresnet_pytorch_tpu_torch.models import register_model
 from uresnet_pytorch_tpu_torch.models.uresnet_sparse_tiled import (
-    _DTYPES, BNAct, SMConvTile, UResNetSparseTiled, _bn_flat, _conv_init,
-    _lecun_normal, resolve_device)
-from uresnet_pytorch_tpu_torch.ops.cuda.norm_act import norm_act
+    _DTYPES, BNAct, SMConvTile, _bn_flat, blob_order, reference_init,
+    remat_stage, resolve_device, tile_graph)
 from uresnet_pytorch_tpu_torch.ops.tile_conv import (downsample_conv_tiled,
                                                      upsample_conv_tiled)
-from uresnet_pytorch_tpu_torch.ops.tile_graph import (
-    build_tile_graph, graph_overflows, graph_spills, tile_size_at)
-from uresnet_pytorch_tpu_torch.utils.timing import count, span, tracing
+from uresnet_pytorch_tpu_torch.ops.tile_graph import tile_size_at
+from uresnet_pytorch_tpu_torch.utils.timing import span
 
 INIT_DIM = 32
 PLANES = (32, 64, 128, 256, 256, 128, 96, 96)
@@ -79,23 +79,6 @@ LAYERS = (2, 3, 4, 6, 2, 2, 2, 2)
 STEM_KERNEL = 5
 LEVELS = 5                      # p1 .. p16
 TILE_SIZES = (4, 2, 2, 2, 2)    # the tile engine's schedule over them
-
-
-def _norm(bnact: BNAct, y, mask, train: bool, residual=None,
-          slope: Optional[float] = None):
-    """act(BN(y) [+ residual]) times the mask, in one operator call; the
-    activation at `slope` (the configuration's unless given; 1 is none)."""
-    cfg = bnact.cfg
-    bn = bnact.MaskedBatchNorm_0
-    out, moments = norm_act(
-        y, mask, bn.scale, bn.bias, bn.mean, bn.var, train=train,
-        remask=True, folded=True,
-        slope=cfg.leaky_relu_slope if slope is None else slope,
-        eps=bn.epsilon, dtype=_DTYPES[cfg.compute_dtype], mesh=bn.mesh,
-        residual=residual)
-    if moments is not None:
-        bn.batch_moments = moments
-    return out
 
 
 class StemConvTile(SMConvTile):
@@ -143,16 +126,15 @@ class BasicBlockTile(nn.Module):
                 s = (torch.mm(rows, w[lo:hi]) if s is None
                      else torch.addmm(s, rows, w[lo:hi]))
                 lo = hi
-            return _norm(self.bn_shortcut, s.reshape(*lead, -1), mask,
-                         train, slope=1.0)
+            return self.bn_shortcut(s.reshape(*lead, -1), mask, train,
+                                    remask=True, slope=1.0)
 
     def forward(self, x, level, mask, t, train: bool = False):
         r = self.shortcut(x, mask, train)
         y = self.conv1(x, level, t)
         y = _bn_flat(self.bn1, y, mask, train)
         y = self.conv2(y, level, t)
-        with span("norm"):
-            return _norm(self.bn2, y, mask, train, residual=r)
+        return _bn_flat(self.bn2, y, mask, train, residual=r)
 
 
 class MinkUNet34CTiled(nn.Module):
@@ -165,9 +147,6 @@ class MinkUNet34CTiled(nn.Module):
     `conv2`, `bn2`, `w_shortcut`, `bn_shortcut`."""
 
     INIT_DIM, PLANES, LAYERS = INIT_DIM, PLANES, LAYERS
-
-    # the U-ResNet's stage wrapper: span, then recompute by remat_mode
-    _stage = UResNetSparseTiled._stage
 
     def __init__(self, cfg: URESNetConfig,
                  generator: Optional[torch.Generator] = None,
@@ -219,23 +198,7 @@ class MinkUNet34CTiled(nn.Module):
             cin = f
         self.head_w = nn.Parameter(torch.empty(cin, cfg.num_class))
         self.head_b = nn.Parameter(torch.zeros(cfg.num_class))
-        self.reset_parameters(generator)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """He normal over fan-in for conv stacks, lecun_normal for the
-        head, zeros for the head's bias and BN biases, ones for BN
-        scales."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf in ("bias", "head_b"):
-                p.zero_()
-            elif leaf == "head_w":
-                p.copy_(_lecun_normal(tuple(p.shape), generator))
-            else:
-                p.copy_(_conv_init(tuple(p.shape), generator))
+        reference_init(self, generator)
 
     def _blocks(self, prefix: str, n: int, x, level, mask, t, train):
         for r in range(n):
@@ -274,24 +237,8 @@ class MinkUNet34CTiled(nn.Module):
     def forward(self, coords, values, n_voxels, train: bool = False):
         cfg = self.cfg
         dt = _DTYPES[cfg.compute_dtype]
-        with span("graph_build"):
-            graph = build_tile_graph(coords, values, n_voxels, cfg)
-            diag = {"overflow": graph_overflows(graph),
-                    "tile_spill": graph_spills(graph),
-                    "vox_spill": graph.vox_spill.sum()}
-            levels, links = graph.levels, graph.links
-            tsz = [tile_size_at(cfg, l) for l in range(LEVELS)]
-
-            def mask_of(lev):
-                rows = torch.arange(lev.keys.shape[1], device=lev.keys.device)
-                return lev.occ & (rows[None] < lev.num[:, None])[..., None]
-
-            masks = [mask_of(lev) for lev in levels]
-            if tracing():
-                count("live_tiles", torch.stack([lev.num.sum()
-                                                 for lev in levels]))
-                count("active_cells", torch.stack([m.sum() for m in masks]))
-                count("capacity_cells", [m.numel() for m in masks])
+        graph, masks, tsz, diag = tile_graph(coords, values, n_voxels, cfg)
+        levels, links = graph.levels, graph.links
 
         # the stem is never recomputed, as the U-ResNet's
         with span("stage.stem"):
@@ -299,29 +246,18 @@ class MinkUNet34CTiled(nn.Module):
                                  tsz[0], train)
         skips = [x]
         for l in range(1, LEVELS):
-            x = self._stage(f"enc{l}", self._enc_stage, train, False, x, l,
-                            links[l - 1], levels[l], masks[l], tsz[l - 1],
+            x = remat_stage(cfg, f"enc{l}", self._enc_stage, train, False, x,
+                            l, links[l - 1], levels[l], masks[l], tsz[l - 1],
                             tsz[l], train)
             if l < LEVELS - 1:
                 skips.append(x)
         for l in reversed(range(LEVELS - 1)):
-            x = self._stage(f"dec{l}", self._dec_stage, train, l == 0, x,
-                            skips[l], l, links[l], levels[l], masks[l],
+            x = remat_stage(cfg, f"dec{l}", self._dec_stage, train, l == 0,
+                            x, skips[l], l, links[l], levels[l], masks[l],
                             tsz[l], tsz[l + 1], train)
-        logits_tiles = self._stage("head", self._head_stage, train, True, x)
-
-        # back to blob row order; voxels of spilled tiles (vox_tile == T0)
-        # index past the end and read the appended zero row
-        with span("reorder"):
-            B, T0, cells0, nc = logits_tiles.shape
-            flat = torch.cat([logits_tiles.reshape(B, T0 * cells0, nc),
-                              logits_tiles.new_zeros(B, 1, nc)], 1)
-            vox = torch.where(graph.input_valid,
-                              graph.vox_tile.long() * cells0 + graph.vox_cell,
-                              0).clamp(max=T0 * cells0)
-            logits = torch.gather(flat, 1, vox[..., None].expand(-1, -1, nc))
-            return (torch.where(graph.input_valid[..., None], logits, 0.0),
-                    diag)
+        logits_tiles = remat_stage(cfg, "head", self._head_stage, train,
+                                   True, x)
+        return blob_order(logits_tiles, graph), diag
 
 
 @register_model("minkunet34c")

@@ -34,7 +34,11 @@ Both modes take the conv path `ops.tile_conv.USE_FUSED` selects: kernel B
 While a profiler records, spans (`utils/timing.py:span`) mark the graph
 build, each stage, every BN, submanifold conv and stride-2 conv, and the
 reorder, and the graph build counts each level's live tiles, active
-cells and capacity cells.
+cells and capacity cells. The graph build (`tile_graph`), the stages'
+recompute (`remat_stage`), the reorder (`blob_order`), the initializer
+(`reference_init`) and `BNAct` are shared with the other tile-engine
+network, `models/minkunet_tiled.py`, so both carry the same spans and
+counters.
 """
 
 from __future__ import annotations
@@ -92,26 +96,29 @@ class BNAct(nn.Module):
         return self.MaskedBatchNorm_0.affine(_DTYPES[self.cfg.compute_dtype])
 
     def forward(self, x, mask=None, train: bool = False,
-                remask: bool = False):
-        """act(BN(x)) in the compute dtype, times the mask with `remask`
-        (`ops/cuda/norm_act.py:norm_act`: the plain chain on the CPU, the
-        kernels on the card)."""
+                remask: bool = False, residual=None,
+                slope: Optional[float] = None):
+        """act(BN(x) [+ residual]) in the compute dtype, times the mask
+        with `remask` (`ops/cuda/norm_act.py:norm_act`: the plain chain on
+        the CPU, the kernels on the card); the activation at `slope`, the
+        configuration's unless given (1 is none)."""
         bn = self.MaskedBatchNorm_0
         y, moments = norm_act(
             x, mask, bn.scale, bn.bias, bn.mean, bn.var, train=train,
-            remask=remask, folded=True, slope=self.cfg.leaky_relu_slope,
+            remask=remask, folded=True,
+            slope=self.cfg.leaky_relu_slope if slope is None else slope,
             eps=bn.epsilon, dtype=_DTYPES[self.cfg.compute_dtype],
-            mesh=bn.mesh)
+            mesh=bn.mesh, residual=residual)
         if moments is not None:
             bn.batch_moments = moments
         return y
 
 
-def _bn_flat(bnact: BNAct, y, mask, train: bool = False):
-    """BNAct, then re-zero inactive cells (the BN bias would leak nonzeros
-    into the dense tile interior), in one operator."""
+def _bn_flat(bnact: BNAct, y, mask, train: bool = False, residual=None):
+    """BNAct [with the residual], then re-zero inactive cells (the BN bias
+    would leak nonzeros into the dense tile interior), in one operator."""
     with span("norm"):
-        return bnact(y, mask, train, remask=True)
+        return bnact(y, mask, train, remask=True, residual=residual)
 
 
 class SMConvTile(nn.Module):
@@ -206,6 +213,83 @@ def _in_span(name: str, fn, *args):
         return fn(*args)
 
 
+@torch.no_grad()
+def reference_init(model: nn.Module,
+                   generator: Optional[torch.Generator] = None) -> None:
+    """The reference's initializers, by parameter name: _conv_init for
+    conv stacks, lecun_normal for `head_w`, zeros for biases and
+    `head_b`, ones for BN scales (drawn in registration order)."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf == "scale":
+            p.fill_(1.0)
+        elif leaf in ("bias", "head_b"):
+            p.zero_()
+        elif leaf == "head_w":
+            p.copy_(_lecun_normal(tuple(p.shape), generator))
+        else:
+            p.copy_(_conv_init(tuple(p.shape), generator))
+
+
+def tile_graph(coords, values, n_voxels, cfg: URESNetConfig):
+    """The tile engine's graph of a batch, in the span `graph_build`:
+    (graph, each level's active-cell mask (B, T, t^dim) bool, each level's
+    tile size, diag), diag holding the graph's `overflow`, `tile_spill`
+    and `vox_spill` counts. While tracing, counts each level's live
+    tiles, active cells and capacity cells."""
+    with span("graph_build"):
+        graph = build_tile_graph(coords, values, n_voxels, cfg)
+        diag = {"overflow": graph_overflows(graph),
+                "tile_spill": graph_spills(graph),
+                "vox_spill": graph.vox_spill.sum()}
+        levels = graph.levels
+        tsz = [tile_size_at(cfg, l) for l in range(len(levels))]
+
+        def mask_of(lev):
+            rows = torch.arange(lev.keys.shape[1], device=lev.keys.device)
+            return lev.occ & (rows[None] < lev.num[:, None])[..., None]
+
+        masks = [mask_of(lev) for lev in levels]
+        if tracing():
+            # live against capacity, per level: the padding that every
+            # dense pass over the tiles carries
+            count("live_tiles", torch.stack([lev.num.sum()
+                                             for lev in levels]))
+            count("active_cells", torch.stack([m.sum() for m in masks]))
+            count("capacity_cells", [m.numel() for m in masks])
+    return graph, masks, tsz, diag
+
+
+def remat_stage(cfg: URESNetConfig, name: str, fn, train: bool,
+                level0: bool, *args):
+    """fn(*args) in the span `stage.<name>`, recomputed in backward (span
+    and all) as cfg.remat_mode says (train with autograd on only;
+    inference never recomputes)."""
+    fn = functools.partial(_in_span, "stage." + name, fn)
+    mode = cfg.remat_mode
+    if not train or mode == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    if mode == "stage" or (mode == "stage_dots_deep" and level0):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=_SAVE_CONV_OUTPUTS)
+
+
+def blob_order(logits_tiles, graph) -> torch.Tensor:
+    """(B, T0, cells0, nc) level-0 logits -> (B, V, nc) in blob row order,
+    padding rows 0, in the span `reorder`; voxels of spilled tiles
+    (vox_tile == T0) index past the end and read the appended zero row."""
+    with span("reorder"):
+        B, T0, cells0, nc = logits_tiles.shape
+        flat = torch.cat([logits_tiles.reshape(B, T0 * cells0, nc),
+                          logits_tiles.new_zeros(B, 1, nc)], 1)
+        vox = torch.where(graph.input_valid,
+                          graph.vox_tile.long() * cells0 + graph.vox_cell,
+                          0).clamp(max=T0 * cells0)
+        logits = torch.gather(flat, 1, vox[..., None].expand(-1, -1, nc))
+        return torch.where(graph.input_valid[..., None], logits, 0.0)
+
+
 class SparseUResNetBase(nn.Module):
     """The parameter tree both sparse engines share, so that one variables
     tree loads into either: a subclass names its submanifold conv
@@ -240,22 +324,7 @@ class SparseUResNetBase(nn.Module):
         self.head_bnact = BNAct(cfg, planes[0])
         self.head_w = nn.Parameter(torch.empty(planes[0], cfg.num_class))
         self.head_b = nn.Parameter(torch.zeros(cfg.num_class))
-        self.reset_parameters(generator)
-
-    @torch.no_grad()
-    def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """The reference's initializers: _conv_init for conv stacks,
-        lecun_normal for the head, zeros for biases, ones for BN scales."""
-        for name, p in self.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf == "scale":
-                p.fill_(1.0)
-            elif leaf in ("bias", "head_b"):
-                p.zero_()
-            elif leaf == "head_w":
-                p.copy_(_lecun_normal(tuple(p.shape), generator))
-            else:
-                p.copy_(_conv_init(tuple(p.shape), generator))
+        reference_init(self, generator)
 
 
 class UResNetSparseTiled(SparseUResNetBase):
@@ -304,43 +373,12 @@ class UResNetSparseTiled(SparseUResNetBase):
         y = _bn_flat(self.head_bnact, x, mask, train)
         return torch.matmul(y.float(), self.head_w) + self.head_b
 
-    def _stage(self, name: str, fn, train: bool, level0: bool, *args):
-        """fn(*args) in the span `stage.<name>`, recomputed in backward
-        (span and all) as cfg.remat_mode says (train with autograd on only;
-        inference never recomputes)."""
-        fn = functools.partial(_in_span, "stage." + name, fn)
-        mode = self.cfg.remat_mode
-        if not train or mode == "none" or not torch.is_grad_enabled():
-            return fn(*args)
-        if mode == "stage" or (mode == "stage_dots_deep" and level0):
-            return checkpoint(fn, *args, use_reentrant=False)
-        return checkpoint(fn, *args, use_reentrant=False,
-                          context_fn=_SAVE_CONV_OUTPUTS)
-
     def forward(self, coords, values, n_voxels, train: bool = False):
         cfg = self.cfg
         dt = _DTYPES[cfg.compute_dtype]
-        with span("graph_build"):
-            graph = build_tile_graph(coords, values, n_voxels, cfg)
-            diag = {"overflow": graph_overflows(graph),
-                    "tile_spill": graph_spills(graph),
-                    "vox_spill": graph.vox_spill.sum()}
-            levels, links = graph.levels, graph.links
-            nlev = len(levels)
-            tsz = [tile_size_at(cfg, l) for l in range(nlev)]
-
-            def mask_of(lev):
-                rows = torch.arange(lev.keys.shape[1], device=lev.keys.device)
-                return lev.occ & (rows[None] < lev.num[:, None])[..., None]
-
-            masks = [mask_of(lev) for lev in levels]
-            if tracing():
-                # live against capacity, per level: the padding that every
-                # dense pass over the tiles carries
-                count("live_tiles", torch.stack([lev.num.sum()
-                                                 for lev in levels]))
-                count("active_cells", torch.stack([m.sum() for m in masks]))
-                count("capacity_cells", [m.numel() for m in masks])
+        graph, masks, tsz, diag = tile_graph(coords, values, n_voxels, cfg)
+        levels, links = graph.levels, graph.links
+        nlev = len(levels)
 
         # eval fuses the stem's occupancy re-mask into its kernel epilogue
         with span("stage.stem"):
@@ -350,33 +388,22 @@ class UResNetSparseTiled(SparseUResNetBase):
         skips = []
         for l in range(nlev):
             last = l == nlev - 1
-            skip, x = self._stage(
-                f"enc{l}", self._enc_stage, train, l == 0, x, l, levels[l],
-                masks[l], levels[l if last else l + 1].occ,
+            skip, x = remat_stage(
+                cfg, f"enc{l}", self._enc_stage, train, l == 0, x, l,
+                levels[l], masks[l], levels[l if last else l + 1].occ,
                 None if last else links[l], tsz[l],
                 tsz[l if last else l + 1], train)
             if not last:
                 skips.append(skip)
 
         for l in reversed(range(nlev - 1)):
-            x = self._stage(f"dec{l}", self._dec_stage, train, l == 0, x,
-                            skips[l], l, levels[l], masks[l], masks[l + 1],
-                            links[l], tsz[l], tsz[l + 1], train)
-        logits_tiles = self._stage("head", self._head_stage, train, True, x,
-                                   masks[0], train)
-
-        # back to blob row order; voxels of spilled tiles (vox_tile == T0)
-        # index past the end and read the appended zero row
-        with span("reorder"):
-            B, T0, cells0, nc = logits_tiles.shape
-            flat = torch.cat([logits_tiles.reshape(B, T0 * cells0, nc),
-                              logits_tiles.new_zeros(B, 1, nc)], 1)
-            vox = torch.where(graph.input_valid,
-                              graph.vox_tile.long() * cells0 + graph.vox_cell,
-                              0).clamp(max=T0 * cells0)
-            logits = torch.gather(flat, 1, vox[..., None].expand(-1, -1, nc))
-            return (torch.where(graph.input_valid[..., None], logits, 0.0),
-                    diag)
+            x = remat_stage(cfg, f"dec{l}", self._dec_stage, train, l == 0,
+                            x, skips[l], l, levels[l], masks[l],
+                            masks[l + 1], links[l], tsz[l], tsz[l + 1],
+                            train)
+        logits_tiles = remat_stage(cfg, "head", self._head_stage, train,
+                                   True, x, masks[0], train)
+        return blob_order(logits_tiles, graph), diag
 
 
 def resolve_device(device) -> torch.device:

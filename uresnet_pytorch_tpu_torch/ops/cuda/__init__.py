@@ -37,12 +37,9 @@ _I = ctypes.c_int
 # C signatures: every pointer and the stream as c_void_p, so ctypes never
 # truncates a 64-bit address to an int
 _SIGNATURES = {
-    "halo_conv_raw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "halo_conv_bn_act": [_P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_float, _P,
-                         _I, _I, _I, _I, _I, _I, _P],
-    "halo_conv_plan": [_I, _I, _I, _I, _I],
-    "halo_conv_dw": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "halo_conv_dw_plan": [_I, _I, _I, _I, _I],
+    "halo_conv_raw": [_P] * 6 + [_I] * 11 + [_P],
+    "halo_conv_bn_act": [_P] * 8 + [ctypes.c_float, _P] + [_I] * 11 + [_P],
+    "halo_conv_dw": [_P] * 6 + [_I] * 10 + [_P],
     "link_assemble": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "link_parent": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "halo_extend": [_P, _P, _P, _P, _P] + [_I] * 11 + [_P],

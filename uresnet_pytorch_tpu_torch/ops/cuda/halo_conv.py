@@ -142,8 +142,9 @@ def staged_input(x: torch.Tensor, plan: "KernelPlan") -> torch.Tensor:
 
 
 class Groups(NamedTuple):
-    """How the kernel cuts a level into groups of 64 output rows
-    (`make_plan` in csrc/halo_conv.cu): `tiles` whole tiles (t^dim <= 64),
+    """How the kernel cuts a level into groups of 64 output rows (its
+    `kRows`; `make_plan` in csrc/halo_conv.cu derives the same from the
+    shape): `tiles` whole tiles (t^dim <= 64),
     or, for a larger tile, `subs` slabs of whole slices along its first
     axis, each staging the ext cells [sub * zoff, sub * zoff + gcells) of
     its tile's (t+2)^dim block."""
@@ -169,14 +170,19 @@ def groups(t: int, dim: int) -> Optional[Groups]:
 
 
 class KernelPlan(NamedTuple):
-    """Kernel B's plan of one conv: `cs` output channels per block, `cw`
-    channels per staged chunk, and the wide path's `ring` weight stages
-    and `kg` offsets per stage (both 0 on the resident path, whose blocks
-    hold their slice's weights)."""
+    """Kernel B's plan of one conv, in the order its C entry points take
+    it: `cs` output channels per block, `cw` channels per staged chunk,
+    the wide path's `ring` weight stages and `kg` offsets per stage (both
+    0 on the resident path, whose blocks hold their slice's weights), and
+    `ahead`: 1 where the resident path stages channel chunks through two
+    buffers, the next chunk's copies in flight while this one multiplies,
+    0 where it stages a group's whole extended rows into one (and on the
+    wide path, whose kernel always runs two)."""
     cs: int
     cw: int
     ring: int
     kg: int
+    ahead: int
 
 
 SMEM = 232448 - 8192     # dynamic shared memory a block may use: the static
@@ -185,11 +191,11 @@ SMEM = 232448 - 8192     # dynamic shared memory a block may use: the static
 
 @functools.lru_cache(maxsize=None)
 def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[KernelPlan]:
-    """The kernel's plan, mirrored from `make_plan` and `plan_wide` in
-    csrc/halo_conv.cu, or None where the kernel takes no such conv: the
-    one statement of its limits, asked by the wrapper's check and by
-    `ops/tile_conv.py`'s choice of path. Output rows come in groups of 64
-    (`groups`).
+    """The kernel's plan, or None where the kernel takes no such conv: the
+    one place that chooses it, asked by the wrapper's check and by
+    `ops/tile_conv.py`'s choice of path, and passed to the kernel, whose
+    `make_plan` (csrc/halo_conv.cu) only checks it against its
+    compile-time limits. Output rows come in groups of 64 (`groups`).
 
     The resident path: Cout is padded to a multiple of 8 (`kernel_weights`'
     zero rows) and split into slices of at most 128. Each block holds its
@@ -206,7 +212,10 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[KernelPlan]:
     chunk) tiles (`wide_weights`) beside two buffers of both groups'
     extended rows: the widest chunk that leaves room for 4 tiles, stages
     of the most offsets (9, 3 or 1, dividing 3^dim) of which 4 fit, and as
-    many stages as fit, up to 8. Where nothing fits, the resident plan."""
+    many stages as fit, up to 8: the stages in flight take long enough to
+    cover the next stages' copies (at 256 wide, 16-channel chunks and 5
+    stages of 3 offsets ran 1.12x faster on an H100 than 32-channel chunks
+    and 3 stages of 1). Where nothing fits, the resident plan."""
     grp = groups(t, dim)
     K = 3 ** dim
     if Cin < 1 or Cout < 1 or grp is None or grp.tiles * K > 216:
@@ -232,11 +241,12 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[KernelPlan]:
     one = fit(1, [cpad]) if cpad <= 128 else (0, 0)
     two = (0, 0) if packed else fit(
         2, [c for c in range(min(cpad, 128), 0, -16) if cpad % c == 0])
-    d, cw = two if two[0] > one[0] else one
+    ahead = int(two[0] > one[0])
+    d, cw = two if ahead else one
     if not d:
         return None
     if packed or Cin % 8 or d == n:
-        return KernelPlan(8 * d, cw, 0, 0)
+        return KernelPlan(8 * d, cw, 0, 0, ahead)
     wide_n = -(-Cout // 32) * 32 if Cout <= 256 else 128
     for wcw in range(min(cpad, 128), 0, -16):
         tile = wide_n * wcw * 2
@@ -244,20 +254,22 @@ def kernel_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[KernelPlan]:
         if cpad % wcw == 0 and room >= 4 * tile:
             kg = next(g for g in (9, 3, 1)
                       if g == 1 or (K % g == 0 and room >= 4 * g * tile))
-            return KernelPlan(wide_n, wcw, min(8, room // (kg * tile)), kg)
-    return KernelPlan(8 * d, cw, 0, 0)
+            return KernelPlan(wide_n, wcw, min(8, room // (kg * tile)), kg,
+                              0)
+    return KernelPlan(8 * d, cw, 0, 0, ahead)
 
 
-def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out) -> tuple:
+def launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out,
+                plan: KernelPlan) -> tuple:
     """The C entry point's arguments, stream excluded: the tensors' own
     storage (the model's (B, T, cells, C) rows, no packed copy), the
-    kernel-layout weights and the shape."""
+    kernel-layout weights, the shape and the plan."""
     B, T, _, Cin = x.shape
     ptrs = [x.data_ptr(), wt.data_ptr(), halo.idx.data_ptr(),
             halo.ok.data_ptr(), halo.blive.data_ptr()]
     if a is not None:
         ptrs += [a.data_ptr(), b.data_ptr(), mask.data_ptr(), float(alpha)]
-    return (*ptrs, out.data_ptr(), B, T, t, dim, Cin, out.shape[-1])
+    return (*ptrs, out.data_ptr(), B, T, t, dim, Cin, out.shape[-1], *plan)
 
 
 def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
@@ -284,7 +296,8 @@ def halo_conv(x: torch.Tensor, w: torch.Tensor, halo: Halo26Spec, t: int,
     with torch.cuda.device(x.device):
         wt = wide_weights(w, plan.cs, plan.cw) if plan.ring \
             else kernel_weights(w)
-        err = fn(*launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out),
+        err = fn(*launch_args(x, wt, halo, t, dim, a, b, alpha, mask, out,
+                              plan),
                  torch.cuda.current_stream().cuda_stream)
     cuda.check(err, "halo_conv")
     launches += 1

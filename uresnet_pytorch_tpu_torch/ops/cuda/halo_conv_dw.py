@@ -54,14 +54,15 @@ def halo_conv_dw_plain(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec,
 
 
 class DwPlan(NamedTuple):
-    """How the kernel splits d_W (`make_plan` in csrc/halo_conv_dw.cu).
-    Blocks take 16-channel Cin slices (Cin >= 16) or all of Cin, packed
-    (Cin < 16), times Cout slices of `cs` channels. A block's M rows come
-    in 16-row tiles: one per offset k (rows = the slice's channels), or
-    the 3^dim x Cin (offset, channel) rows k * Cin + c packed, padded to a
-    multiple of 16. Its 9 warps form `wm` groups; group w takes the M
-    tiles w, w + wm, ... (`mw` of them) and its 9 / wm warps split the
-    16-cell depth steps of its chunks (`tiles` whole tiles each)."""
+    """How the kernel splits d_W, in the order its C entry point takes it
+    (`make_plan` in csrc/halo_conv_dw.cu checks it). Blocks take
+    16-channel Cin slices (Cin >= 16) or all of Cin, packed (Cin < 16),
+    times Cout slices of `cs` channels. A block's M rows come in 16-row
+    tiles: one per offset k (rows = the slice's channels), or the 3^dim x
+    Cin (offset, channel) rows k * Cin + c packed, padded to a multiple of
+    16. Its 9 warps form `wm` groups; group w takes the M tiles w, w + wm,
+    ... (`mw` of them) and its 9 / wm warps split the 16-cell depth steps
+    of its chunks (`tiles` whole tiles each)."""
     cs: int
     tiles: int
     wm: int
@@ -76,14 +77,15 @@ _MAX_SMEM = 232448       # dynamic shared memory a block may use
 
 @functools.lru_cache(maxsize=None)
 def dw_plan(t: int, dim: int, Cin: int, Cout: int) -> Optional[DwPlan]:
-    """The kernel's plan for a shape, mirrored from `make_plan` in
-    csrc/halo_conv_dw.cu, or None where the kernel takes no such d_W: the
-    one statement of its limits, asked by the wrapper's check and by
-    `ops/tile_conv.py`'s choice of path. Cout is padded to a multiple of 8
-    on the MMA's N side; chunks are 256 cells of whole tiles (one tile
-    where a tile is larger); the Cout slice is the widest of at most 128
-    channels whose accumulators (mw x cs / 8 x 4 f32 a lane) stay within
-    120 and whose buffer fits in 227 KB beside the tables."""
+    """The kernel's plan for a shape, or None where the kernel takes no such
+    d_W: the one place that chooses it, asked by the wrapper's check and by
+    `ops/tile_conv.py`'s choice of path, and passed to the kernel, whose
+    `make_plan` (csrc/halo_conv_dw.cu) only checks it against its compile-time
+    limits. Cout is padded to a multiple of 8 on the MMA's N side; chunks are
+    256 cells of whole tiles (one tile where a tile is larger); the Cout slice
+    is the widest of at most 128 channels whose accumulators (mw x cs / 8 x 4
+    f32 a lane) stay within 120 and whose buffer fits in 227 KB beside the
+    tables."""
     if dim not in (2, 3) or t < 2 or Cin < 1 or Cout < 1:
         return None
     cells, ecells, K = t ** dim, (t + 2) ** dim, 3 ** dim
@@ -144,6 +146,15 @@ def _check(x, g, halo, t, dim):
                 f"halo_conv_dw: {name} must be contiguous on {dev}")
 
 
+def launch_args(x, g, halo, t, dim, dw, plan: DwPlan) -> tuple:
+    """The C entry point's arguments, stream excluded: the tensors'
+    storage, the shape and the plan."""
+    B, T, _, Cin = x.shape
+    return (x.data_ptr(), g.data_ptr(), halo.idx.data_ptr(),
+            halo.ok.data_ptr(), halo.blive.data_ptr(), dw.data_ptr(), B, T,
+            t, dim, Cin, g.shape[-1], *plan)
+
+
 def halo_conv_dw(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec, t: int,
                  dim: int) -> torch.Tensor:
     """d_W on x's device: the plain version for a CPU tensor, the CUDA
@@ -152,17 +163,15 @@ def halo_conv_dw(x: torch.Tensor, g: torch.Tensor, halo: Halo26Spec, t: int,
         return halo_conv_dw_plain(x, g, halo, t, dim)
     global launches
     _check(x, g, halo, t, dim)
-    B, T, _, Cin = x.shape
-    Cout = g.shape[-1]
+    Cin, Cout = x.shape[-1], g.shape[-1]
     if Cout % 8 == 0 and g.data_ptr() % 16:   # g staged in 16-byte loads
         g = g.clone()
     dw = torch.zeros(3 ** dim, Cin, Cout, dtype=torch.float32,
                      device=x.device)
     with torch.cuda.device(x.device):
         err = cuda.library().halo_conv_dw(
-            x.data_ptr(), g.data_ptr(), halo.idx.data_ptr(),
-            halo.ok.data_ptr(), halo.blive.data_ptr(), dw.data_ptr(),
-            B, T, t, dim, Cin, Cout, torch.cuda.current_stream().cuda_stream)
+            *launch_args(x, g, halo, t, dim, dw, dw_plan(t, dim, Cin, Cout)),
+            torch.cuda.current_stream().cuda_stream)
     cuda.check(err, "halo_conv_dw")
     launches += 1
     launches_by_shape[(t, Cin, Cout)] += 1
